@@ -1,21 +1,27 @@
-"""Write tests/data/torch_port_golden.npz: JAX oracle frames for the port.
+"""Write the JAX oracle frames for the port: tests/data/torch_port_golden.npz
+(the demo scene) and tests/data/torch_port_golden_mesh.npz (the
+many-object scene).
 
-The machine with the card has no JAX, so the check of the CUDA kernel
-against the JAX oracle (``chip_smoke.py``, phase 3) reads the oracle from
-this file. For each scene time in TIMES it holds:
+The machine with the card has no JAX, so the checks of the CUDA kernels
+against the JAX oracle (``chip_smoke.py``, phases 3 and C) read the oracle
+from these files. For each scene time in TIMES a file holds:
 
-  - ``scene{i}.<field path>``: the JAX Scene's leaves, camera pose
-    included, for ``ttrt_torch.scene.scene_from_numpy``;
+  - ``scene{i}.<field path>``: the JAX Scene's (or MeshScene's) leaves,
+    camera pose included, for ``ttrt_torch.scene.scene_from_numpy``;
   - ``fb{i}``: the JAX ``render_frame`` float32 framebuffer, (H, W, 3);
   - ``k1_{i}``, ``k2_{i}``: the knife-edge masks of ``knife_util.knife_mask``
     at eps 3e-6 and 1e-4, (H, W) bool;
   - ``rays{i}``: the oracle's trace count;
 
-plus ``times`` and ``config`` (width, height, spp, bounces).
+plus ``times`` and ``config`` (width, height, spp, bounces; the mesh file
+adds n_spheres).
 
-Run from the repository root:  python tests/make_torch_golden.py
-``tests/test_torch_golden.py`` regenerates the arrays in memory and checks
-that the stored file equals them.
+Run from the repository root:  python tests/make_torch_golden.py [demo|mesh]
+(both files without an argument). ``tests/test_torch_golden.py``
+regenerates the arrays in memory and checks that each stored file equals
+them (the many-object file without its knife masks, whose two minutes of
+JAX renders are too slow for the tests; the masks are a function of the
+arrays it does check).
 """
 
 from __future__ import annotations
@@ -40,23 +46,33 @@ from knife_util import knife_mask, quantize_u8  # noqa: E402
 from ttrt.assets import make_colors_skybox, skybox_from_faces  # noqa: E402
 from ttrt.config import RenderConfig  # noqa: E402
 from ttrt.frames import orbit_camera_frame  # noqa: E402
+from ttrt.mesh import many_sphere_scene  # noqa: E402
 from ttrt.render.integrator import render_frame  # noqa: E402
 from ttrt.scene import demo_scene  # noqa: E402
 
 GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden.npz")
+MESH_GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden_mesh.npz")
 WIDTH, HEIGHT, SPP, BOUNCES = 64, 32, 2, 10
 TIMES = (0.7, 3.3)
+# more than 4 sweep chunks of the JAX fused kernel (tests/test_mesh_fused.py)
+MESH_SPHERES = 2240
 # the 'colors' cubemap is one color per face, so its size changes no frame;
 # 16 keeps the stored texels small
 SKY_DIM = 16
 
 
 def scene_leaves(scene) -> dict:
-    """A Scene of either package as numpy leaves keyed by field path
-    (``"spheres.center.x"``, ``"skybox.packed"``, ...)."""
+    """A Scene or MeshScene of either package as numpy leaves keyed by
+    field path (``"spheres.center.x"``, ``"skybox.packed"``, ...). A
+    MeshScene's acceleration structures (grid, cluster pack) are left out:
+    the port builds its own pack from the geometry."""
     out = {}
+    if hasattr(scene, "clusters"):
+        scene = scene._replace(grid=None, clusters=None)
 
     def walk(obj, path):
+        if obj is None:
+            return
         if hasattr(obj, "_fields"):
             for name in obj._fields:
                 walk(getattr(obj, name), f"{path}.{name}" if path else name)
@@ -82,29 +98,63 @@ def jax_scene(t: float, width: int = WIDTH, height: int = HEIGHT,
     return scene.with_camera_frame(frame)
 
 
-def golden_arrays() -> dict:
+def jax_mesh_scene(t: float, n_spheres: int = MESH_SPHERES,
+                   width: int = WIDTH, height: int = HEIGHT, seed: int = 0,
+                   floor_cells: int = 16, procedural: str = "colors"):
+    """The JAX many-object scene with its float32 camera pose at time t."""
+    scene = many_sphere_scene(
+        skybox_from_faces(make_colors_skybox(SKY_DIM), jnp.float32,
+                          procedural=procedural),
+        n_spheres=n_spheres, width_px=width, height_px=height, seed=seed,
+        floor_cells=floor_cells,
+    )
+    frame = jax.tree.map(lambda a: a.astype(jnp.float32),
+                         orbit_camera_frame(t, jnp.float32))
+    return scene.with_camera_frame(frame)
+
+
+def _frames(make_scene, config, knife: bool = True) -> dict:
+    """The golden's arrays; without ``knife`` the K1/K2 masks (three
+    quarters of the time, and a function of the scene, the config and the
+    frame) are left out."""
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, rays_per_pixel=SPP,
                        bounce_limit=BOUNCES, dtype=jnp.float32)
     out = {
         "times": np.asarray(TIMES, np.float64),
-        "config": np.asarray([WIDTH, HEIGHT, SPP, BOUNCES], np.int64),
+        "config": np.asarray(config, np.int64),
     }
     for i, t in enumerate(TIMES):
-        scene = jax_scene(t)
+        scene = make_scene(t)
         fb, rays = render_frame(scene, cfg, count_rays=True)
         ref = np.asarray(fb.to_array(), np.float32)
         q_ref = quantize_u8(ref)
         for key, value in scene_leaves(scene).items():
             out[f"scene{i}.{key}"] = value
         out[f"fb{i}"] = ref
-        out[f"k1_{i}"] = knife_mask(scene, cfg, q_ref, 3e-6)
-        out[f"k2_{i}"] = knife_mask(scene, cfg, q_ref, 1e-4)
+        if knife:
+            out[f"k1_{i}"] = knife_mask(scene, cfg, q_ref, 3e-6)
+            out[f"k2_{i}"] = knife_mask(scene, cfg, q_ref, 1e-4)
         out[f"rays{i}"] = np.asarray(rays, np.int64)
     return out
 
 
+def golden_arrays() -> dict:
+    """The demo scene's golden."""
+    return _frames(jax_scene, [WIDTH, HEIGHT, SPP, BOUNCES])
+
+
+def mesh_golden_arrays(knife: bool = True) -> dict:
+    """The many-object scene's golden: MESH_SPHERES spheres, seed 0, the
+    16x16-cell floor mesh."""
+    return _frames(jax_mesh_scene,
+                   [WIDTH, HEIGHT, SPP, BOUNCES, MESH_SPHERES], knife)
+
+
 if __name__ == "__main__":
-    arrays = golden_arrays()
-    os.makedirs(os.path.dirname(GOLDEN_PATH), exist_ok=True)
-    np.savez_compressed(GOLDEN_PATH, **arrays)
-    print(f"wrote {GOLDEN_PATH} ({os.path.getsize(GOLDEN_PATH)} bytes)")
+    which = sys.argv[1:] or ["demo", "mesh"]
+    for name in which:
+        path, arrays = {"demo": (GOLDEN_PATH, golden_arrays),
+                        "mesh": (MESH_GOLDEN_PATH, mesh_golden_arrays)}[name]
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, **arrays())
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -19,11 +19,13 @@ from ttrt_torch.config import RenderConfig
 from ttrt_torch.kernels import render
 from ttrt_torch.scene import demo_scene
 
+torch.set_num_threads(1)  # the test workers share the cores
+
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _run(*args, timeout=120):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], cwd=REPO, env=env,
                           capture_output=True, timeout=timeout)
 
@@ -84,10 +86,11 @@ def test_package_source_has_no_jax_import_and_no_fallback():
     ``try`` turns a kernel build or launch failure into another path."""
     banned = re.compile(r"^\s*(import jax|from jax|import ttrt\b(?!_)"
                         r"|from ttrt\b(?!_))", re.M)
-    for path in (REPO / "ttrt_torch").rglob("*.py"):
+    for path in [*(REPO / "ttrt_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         src = path.read_text()
         assert not banned.search(src), path
-    for name in ("kernels/render.py", "kernels/build.py"):
+    for name in ("kernels/render.py", "kernels/build.py", "kernels/mesh.py",
+                 "kernels/mesh_fused.py"):
         src = (REPO / "ttrt_torch" / name).read_text()
         assert not re.search(r"^\s*except\b", src, re.M), name
 

@@ -1,7 +1,9 @@
-"""The CUDA render kernel on the card: against its plain version, against
-the stored JAX golden, and its wrapper's checks. Marked ``cuda``; each test
-skips without a CUDA device. The machine with the card has no JAX, so run
-these without the repository's conftest (which imports JAX):
+"""The CUDA kernels on the card: the demo render kernel and the two
+many-object kernels (fused whole-frame, cluster_nearest) against their
+plain versions and the stored JAX goldens, and their wrappers' checks.
+Marked ``cuda``; each test skips without a CUDA device. The machine with
+the card has no JAX, so run these without the repository's conftest (which
+imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -14,8 +16,11 @@ import chip_smoke
 from ttrt_torch import assets
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
-from ttrt_torch.kernels import render
+from ttrt_torch.kernels import mesh, mesh_fused, render
+from ttrt_torch.mesh.dense import dense_nearest
+from ttrt_torch.mesh.scene import many_sphere_scene, trace_ray_mesh
 from ttrt_torch.scene import Spheres, demo_scene
+from ttrt_torch.vec import Vec3
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +71,77 @@ def test_kernel_refuses_too_many_spheres(cuda):
                           device=cuda)
     with pytest.raises(ConfigError, match="at most 64 spheres"):
         render.render_frame_cuda(scene._replace(spheres=many), cfg)
+
+
+def _mesh_scene(t, cfg, device, n_spheres=2240):
+    scene = many_sphere_scene(assets.load_skybox("colors", device=device),
+                              n_spheres, cfg.width, cfg.height,
+                              dtype=torch.float32, device=device)
+    return scene.with_camera_frame(
+        orbit_camera_frame(t, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("flags", [
+    {}, {"specular": True}, {"energy_model": "subtract"},
+])
+def test_mesh_fused_matches_plain_version(cuda, flags):
+    """The culled kernel equals the exhaustive plain version bit for bit
+    (both keep the lowest id on a tie), trace counts included."""
+    cfg = RenderConfig(width=97, height=41, rays_per_pixel=3,
+                       bounce_limit=10, **flags)
+    scene = _mesh_scene(3.3, cfg, cuda)
+    before = mesh_fused.render_band_mesh_fused_cuda.launches
+    fb_k, rays_k = mesh_fused.render_frame_mesh_fused(scene, cfg)
+    assert mesh_fused.render_band_mesh_fused_cuda.launches == before + 1
+    fb_p, rays_p = mesh_fused.render_frame_mesh_fused_plain(scene, cfg)
+    torch.cuda.synchronize()
+    stats = chip_smoke.exact_bar(fb_p.to_array().cpu().numpy(),
+                                 fb_k.to_array().cpu().numpy(), rays_p,
+                                 rays_k)
+    assert stats["max_abs"] == 0.0, stats
+
+
+def test_mesh_fused_meets_stored_golden(cuda):
+    for stats in chip_smoke.check_golden(
+            mesh_fused.render_frame_mesh_fused, cuda,
+            chip_smoke.MESH_GOLDEN, chip_smoke.MESH_KNIFE_CAP,
+            chip_smoke.MESH_FLIP_CAP):
+        assert stats["uncovered"] == 0
+
+
+def test_cluster_nearest_matches_dense_tester(cuda):
+    cfg = RenderConfig(width=64, height=32, rays_per_pixel=1)
+    scene = _mesh_scene(0.7, cfg, cuda)
+    rng = np.random.default_rng(9)
+    o = rng.uniform([-12, -1, -12], [12, 6, 12], (8192, 3))
+    d = rng.normal(size=(8192, 3))
+    d[:2048, 1] = -np.abs(d[:2048, 1])  # a quarter toward the floor
+    to_vec = lambda a: Vec3(*(torch.tensor(a[:, i], dtype=torch.float32,  # noqa: E731
+                                           device=cuda) for i in range(3)))
+    o, d = to_vec(o), to_vec(d)
+    ref = dense_nearest(scene.spheres, scene.triangles, o, d)
+    for mode in ("cull", "dense"):
+        before = mesh.cluster_nearest_cuda.launches
+        out = mesh.cluster_nearest_cuda(scene.clusters, o, d, mode=mode)
+        assert mesh.cluster_nearest_cuda.launches == before + 1
+        stats = chip_smoke.nearest_bar(ref, out)
+        assert stats["hits"] > 1000, (mode, stats)
+
+
+def test_trace_ray_mesh_on_the_card_takes_the_kernel_or_raises(cuda):
+    """Rays on the card go through cluster_nearest_cuda: a scene without
+    its pack, or float64 rays, raise instead of falling back."""
+    cfg = RenderConfig(width=8, height=4, rays_per_pixel=1)
+    scene = _mesh_scene(0.7, cfg, cuda, n_spheres=200)
+    o = Vec3(*(torch.zeros(64, device=cuda) for _ in range(3)))
+    d = Vec3(torch.ones(64, device=cuda), torch.zeros(64, device=cuda),
+             torch.zeros(64, device=cuda))
+    before = mesh.cluster_nearest_cuda.launches
+    trace_ray_mesh(scene, o, d)
+    assert mesh.cluster_nearest_cuda.launches == before + 1
+    with pytest.raises(ConfigError, match="cluster pack"):
+        trace_ray_mesh(scene._replace(clusters=None), o, d)
+    with pytest.raises(ConfigError, match="float32"):
+        trace_ray_mesh(scene, Vec3(*(c.double() for c in o)),
+                       Vec3(*(c.double() for c in d)))
+    assert mesh.cluster_nearest_cuda.launches == before + 1

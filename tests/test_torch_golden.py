@@ -1,10 +1,12 @@
-"""The stored JAX golden (tests/data/torch_port_golden.npz), which the
-machine with the card reads in place of JAX, must equal what
-tests/make_torch_golden.py computes from the JAX package now."""
+"""The stored JAX goldens (tests/data/torch_port_golden.npz and
+tests/data/torch_port_golden_mesh.npz), which the machine with the card
+reads in place of JAX, must equal what tests/make_torch_golden.py computes
+from the JAX package now."""
 
 import numpy as np
 
-from make_torch_golden import GOLDEN_PATH, golden_arrays
+from make_torch_golden import (GOLDEN_PATH, HEIGHT, MESH_GOLDEN_PATH, TIMES,
+                               WIDTH, golden_arrays, mesh_golden_arrays)
 
 
 def test_stored_golden_is_current():
@@ -14,3 +16,21 @@ def test_stored_golden_is_current():
         for key, value in want.items():
             assert stored[key].dtype == np.asarray(value).dtype, key
             np.testing.assert_array_equal(stored[key], value, err_msg=key)
+
+
+def test_stored_mesh_golden_is_current():
+    """The many-object golden (tests/data/torch_port_golden_mesh.npz): its
+    scene leaves, config, frames and trace counts equal what the JAX
+    package computes now. The knife masks are left to
+    ``python tests/make_torch_golden.py mesh``: they are a function of the
+    checked arrays, and recomputing them takes two minutes."""
+    want = mesh_golden_arrays(knife=False)
+    with np.load(MESH_GOLDEN_PATH) as stored:
+        knife = {f"k{j}_{i}" for j in (1, 2) for i in range(len(TIMES))}
+        assert sorted(stored.files) == sorted(set(want) | knife)
+        for key, value in want.items():
+            assert stored[key].dtype == np.asarray(value).dtype, key
+            np.testing.assert_array_equal(stored[key], value, err_msg=key)
+        for key in knife:
+            assert stored[key].dtype == bool, key
+            assert stored[key].shape == (HEIGHT, WIDTH), key

@@ -32,6 +32,8 @@ from ttrt_torch.render import skybox
 from ttrt_torch.scene import demo_scene, scene_from_numpy
 from ttrt_torch.term import encoder
 
+torch.set_num_threads(1)  # the test workers share the cores
+
 CPU = torch.device("cpu")
 REPO = Path(__file__).resolve().parent.parent
 
@@ -192,7 +194,7 @@ def test_skybox_tables_equal_jax():
 
 
 def _cu_table(name: str) -> np.ndarray:
-    src = (REPO / "ttrt_torch/kernels/csrc/render.cu").read_text()
+    src = (REPO / "ttrt_torch/kernels/csrc/common.cuh").read_text()
     m = re.search(name + r"\[6\]\[3\] = \{(.*?)\};", src, re.S)
     return np.array([float(v) for v in re.findall(r"-?\d+\.\d+", m.group(1))]
                     ).reshape(6, 3)
@@ -205,7 +207,7 @@ def _cu_table(name: str) -> np.ndarray:
     ("FACE_COLORS", np.array(render._FACE_COLORS01)),
 ])
 def test_kernel_source_tables_match(name, table):
-    """The CUDA kernel holds the cubemap tables as literals."""
+    """The CUDA kernels hold the cubemap tables as literals."""
     np.testing.assert_array_equal(_cu_table(name), table)
 
 

@@ -25,6 +25,8 @@ from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.kernels import render
 from ttrt_torch.scene import Skybox, scene_from_numpy
 
+torch.set_num_threads(1)  # the test workers share the cores
+
 W, H, SPP, BOUNCES = 32, 16, 2, 10
 
 

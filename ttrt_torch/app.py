@@ -1,11 +1,12 @@
-"""CLI application: the animated demo-scene frame loop and still rendering
-(port of ``ttrt.app``).
+"""CLI application: the animated frame loop and still rendering of the demo
+scene and the many-object scene (port of ``ttrt.app``).
 
 Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
 
     host clock t -> frame_step(t, cam_offset), all on the device:
         orbit camera pose
-        render (the CUDA kernel; its plain version with --device cpu)
+        render (a CUDA kernel, or the eager integrator; the kernel's plain
+            version with --device cpu)
         quantize + ANSI-encode
     -> one device->host uint8 copy -> one write(2) -> pace -> fps HUD
 
@@ -30,7 +31,9 @@ import torch
 from ttrt_torch import assets
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
-from ttrt_torch.kernels.render import check_supported, render_frame
+from ttrt_torch.kernels import mesh_fused, render
+from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene
+from ttrt_torch.render import integrator
 from ttrt_torch.scene import Scene, demo_scene
 from ttrt_torch.term.display import KeyboardInput, SigintFlag, TerminalDisplay
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
@@ -43,17 +46,57 @@ _KEY_MOVES = {"up": (1, 1.0), "down": (1, -1.0), "left": (0, -1.0),
               "right": (0, 1.0)}
 
 
-def _pick_renderer(scene: Scene, cfg: RenderConfig):
-    """The render path: the demo kernel's ``render_frame`` (the CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors). The port has no
-    other path yet, so a config the kernel does not serve is refused here,
-    before the first frame."""
-    check_supported(scene, cfg)
-    return render_frame
+RENDERERS = ("auto", "kernel", "eager")
 
 
-def build_frame_step(scene: Scene, cfg: RenderConfig,
-                     encode: str = "device"):
+def _pick_renderer(scene, cfg: RenderConfig, renderer: str = "auto"):
+    """The render path (``ttrt.app._pick_renderer``, app.py:190-220):
+
+    - ``eager``, or ``auto`` in float64: the eager integrator
+      (``render.integrator.render_frame``), the only path for ``--f64``;
+    - otherwise a kernel: the demo scene's ``render_frame``, or for a
+      ``MeshScene`` with a cluster pack the fused whole-frame kernel
+      (each the CUDA kernel for CUDA tensors, its plain version for CPU
+      tensors). A config no kernel serves is refused here, before the
+      first frame (``kernel`` asks for a kernel explicitly).
+
+    The integrator traces a ``MeshScene`` on the card through the float32
+    ``cluster_nearest`` kernel, so a float64 ``MeshScene`` runs on the CPU
+    only (the JAX package traces it in float32 on an accelerator)."""
+    if renderer not in RENDERERS:
+        raise ConfigError(f"unknown renderer {renderer!r}")
+    if renderer == "eager" or (renderer == "auto"
+                               and cfg.dtype != torch.float32):
+        if (isinstance(scene, MeshScene) and cfg.dtype != torch.float32
+                and scene.spheres.radius.device.type != "cpu"):
+            raise ConfigError("--f64 with --scene many needs --device cpu: "
+                              "the card traces a MeshScene through the "
+                              "float32 cluster_nearest kernel")
+        return integrator.render_frame
+    if isinstance(scene, MeshScene):
+        mesh_fused.check_supported(scene, cfg)
+        return mesh_fused.render_frame_mesh_fused
+    render.check_supported(scene, cfg)
+    return render.render_frame
+
+
+def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
+               n_spheres: int = 10_000):
+    """The scene of ``--scene``: the reference's demo scene, or the
+    many-object scene (``n_spheres`` random spheres over a triangle-mesh
+    floor, with its cluster pack), in the config's dtype."""
+    skybox = assets.load_skybox(skybox_name, device=device)
+    if kind == "many":
+        return many_sphere_scene(skybox, n_spheres, cfg.width, cfg.height,
+                                 dtype=cfg.dtype, device=device)
+    if kind != "demo":
+        raise ConfigError(f"unknown scene {kind!r}")
+    return demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
+                      device=device)
+
+
+def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
+                     renderer: str = "auto"):
     """(t, cam_offset) -> frame bytes on the scene's device. ``cam_offset``
     is a world-frame camera translation driven by arrow keys (extension;
     reference stub at TerminalRayTracer.c:1196-1215).
@@ -61,14 +104,15 @@ def build_frame_step(scene: Scene, cfg: RenderConfig,
     ``encode``: 'device' returns the full ANSI buffer; 'host' returns the
     compact (H, W, 3) uint8 frame, which the host expands."""
     device = scene.spheres.radius.device
-    render = _pick_renderer(scene, cfg)
+    render_fn = _pick_renderer(scene, cfg, renderer)
     template = (ansi_template(cfg.width, cfg.height, device)
                 if encode == "device" else None)
 
     def frame_step(t: float, cam_offset: torch.Tensor) -> torch.Tensor:
         frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
         frame = frame._replace(origin=frame.origin + cam_offset)
-        fb, _ = render(scene.with_camera_frame(frame), cfg, count_rays=False)
+        fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
+                          count_rays=False)
         if template is None:
             return encode_rgb_frame(fb)
         return encode_ansi_frame(fb, template)
@@ -91,12 +135,13 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                   max_frames: int | None = None,
                   interactive: bool = True,
                   encode: str = "device",
-                  scene: Scene | None = None,
+                  scene: Scene | MeshScene | None = None,
                   stats: bool = False,
                   pipeline: int = 0,
                   device="cuda",
                   stream=None,
-                  timers: StageTimers | None = None) -> float:
+                  timers: StageTimers | None = None,
+                  renderer: str = "auto") -> float:
     """The reference's frame loop (TerminalRayTracer.c:1315-1366): render,
     draw, pace to the frame budget, print fps. Returns the last measured
     fps.
@@ -104,13 +149,12 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     ``pipeline`` > 0 keeps that many frames in flight, copying them to the
     host in a small thread pool; camera input takes effect ``pipeline``
     frames later. ``stream`` is the byte sink for the frames (stdout by
-    default); ``timers`` collects the per-stage times."""
+    default); ``timers`` collects the per-stage times. ``scene`` defaults
+    to the demo scene; ``renderer`` is ``_pick_renderer``'s."""
     if scene is None:
-        skybox = assets.load_skybox(skybox_name, device=device)
-        scene = demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
-                           device=device)
+        scene = make_scene("demo", cfg, skybox_name, device=device)
     device = scene.spheres.radius.device
-    frame_step = build_frame_step(scene, cfg, encode)
+    frame_step = build_frame_step(scene, cfg, encode, renderer)
 
     cam_offset = np.zeros(3, np.float64)
     offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
@@ -187,17 +231,17 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
 
 def render_still(cfg: RenderConfig, skybox_name: str, t: float,
                  out_path: str, *, device="cuda",
-                 scene: Scene | None = None) -> None:
+                 scene: Scene | MeshScene | None = None,
+                 renderer: str = "auto") -> None:
     """Render one frame at time t and write it as PPM (or PNG/JPEG/BMP by
-    extension, when PIL is installed)."""
+    extension, when PIL is installed). ``scene`` defaults to the demo
+    scene."""
     if scene is None:
-        skybox = assets.load_skybox(skybox_name, device=device)
-        scene = demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
-                           device=device)
+        scene = make_scene("demo", cfg, skybox_name, device=device)
     device = scene.spheres.radius.device
-    render = _pick_renderer(scene, cfg)
+    render_fn = _pick_renderer(scene, cfg, renderer)
     frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-    fb, _ = render(scene.with_camera_frame(frame), cfg, count_rays=False)
+    fb, _ = render_fn(scene.with_camera_frame(frame), cfg, count_rays=False)
     rgb = _to_host(encode_rgb_frame(fb))
     if out_path.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")):
         from PIL import Image
@@ -246,12 +290,26 @@ def main(argv=None) -> int:
                    help="ANSI encode on the device (full escape buffer over "
                         "the link) or on the host (compact RGB copy)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda: the CUDA kernel; cpu: its plain PyTorch "
-                        "version (tests, development)")
+                   help="cuda: the CUDA kernels; cpu: their plain PyTorch "
+                        "versions (tests, development)")
+    p.add_argument("--scene", choices=["demo", "many"], default="demo",
+                   help="demo: the reference's 6-sphere scene; many: "
+                        "random spheres over a triangle-mesh floor")
+    p.add_argument("--n-spheres", type=int, default=10_000,
+                   help="sphere count for --scene many")
+    p.add_argument("--f64", action="store_true",
+                   help="float64 compute through the eager integrator "
+                        "(with --scene many on --device cpu only: the "
+                        "card's nearest-hit kernel is float32)")
+    p.add_argument("--renderer", choices=list(RENDERERS), default="auto",
+                   help="render path: a kernel or the eager integrator "
+                        "(auto picks the kernel unless --f64)")
     args = p.parse_args(argv)
 
     if args.spp < 1 or args.width < 1 or args.height < 1 or args.bounces < 1:
         p.error("--width/--height/--spp/--bounces must be >= 1")
+    if args.n_spheres < 1:
+        p.error("--n-spheres must be >= 1")
     # geometry must stay full float32 (the TF32 analog of the TPU's bf16
     # matmul trap); the port's 3x3 products are elementwise, and these
     # keep any later matmul or convolution honest too
@@ -265,15 +323,18 @@ def main(argv=None) -> int:
             width=args.width, height=args.height, rays_per_pixel=args.spp,
             bounce_limit=args.bounces, frame_rate=args.fps,
             specular=args.specular, energy_model=args.energy_model,
+            dtype=torch.float64 if args.f64 else torch.float32,
         )
+        scene = make_scene(args.scene, cfg, args.skybox, device=args.device,
+                           n_spheres=args.n_spheres)
         if args.still:
             render_still(cfg, args.skybox, args.time, args.still,
-                         device=args.device)
+                         scene=scene, renderer=args.renderer)
             return 0
         run_animation(cfg, args.skybox, args.frames,
                       interactive=not args.no_input, encode=args.encode,
-                      stats=args.stats, pipeline=args.pipeline,
-                      device=args.device)
+                      scene=scene, stats=args.stats, pipeline=args.pipeline,
+                      renderer=args.renderer)
         return 0
     except (assets.AssetError, ConfigError) as e:
         # user errors: one line, no traceback (the reference exits with a

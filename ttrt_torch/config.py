@@ -45,8 +45,9 @@ class RenderConfig:
     Defaults mirror the reference (TerminalRayTracer.c:47-58): 480x280
     pixels, 10 AA rays per pixel, 10 bounce limit, 60 fps target.
 
-    ``dtype`` is the torch compute dtype. The render kernel serves
-    ``torch.float32`` only; the float64 oracle is a later slice.
+    ``dtype`` is the torch compute dtype. The render kernels serve
+    ``torch.float32`` only; the eager integrator (``render.integrator``)
+    also computes in ``torch.float64``.
 
     ``skybox_bilinear`` asks for bilinear texel filtering (reference roadmap
     item, TerminalRayTracer.c:23); the port refuses it until that slice

@@ -1,12 +1,13 @@
 """Build the CUDA kernels from this package's sources and load them with
 ctypes.
 
-``nvcc`` compiles ``csrc/render.cu`` into a shared library with a plain C
-interface, ``ttrt_torch/_build/librender_<hash>.so``, at first use. The hash
-covers the source and the flags, so an edited source builds anew. The
-flags keep float arithmetic as the JAX oracle rounds it: ``--fmad=false``
-(no contraction into fused multiply-adds) and no ``--use_fast_math`` (IEEE
-``sqrtf`` and division).
+One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface, ``ttrt_torch/_build/libttrt_kernels_<hash>.so``, at
+first use. The hash covers every source under ``csrc/`` (headers included)
+and the flags, so an edited source builds anew. The flags keep float
+arithmetic as the JAX oracle rounds it: ``--fmad=false`` (no contraction
+into fused multiply-adds) and no ``--use_fast_math`` (IEEE ``sqrtf`` and
+division).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import tempfile
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "render.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,10 +39,17 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def sources() -> list[Path]:
+    """The translation units, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"librender_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libttrt_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, str]:
@@ -56,7 +64,7 @@ def build() -> tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -74,9 +82,20 @@ def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its argtypes."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ttrt_render_limits.restype = None
     lib.ttrt_render_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.ttrt_render.restype = ctypes.c_int
     lib.ttrt_render.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, p, p, p]
+    # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, qbox, order,
+    # kb_sph, kb_tri, W, H, N, n_rows, n_samples, bounce_limit, specular,
+    # subtract, sky_kind, sky_dim, scale, out_rgb, out_count, stream
+    lib.ttrt_mesh_fused.restype = ctypes.c_int
+    lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 12
+                                    + [f, p, p, p])
+    # ox oy oz dx dy dz, n, sph, sph_id, tri, tri_id, qbox, kb_sph, kb_tri,
+    # mode, out_t, out_id, stream
+    lib.ttrt_cluster_nearest.restype = ctypes.c_int
+    lib.ttrt_cluster_nearest.argtypes = ([p] * 6 + [i] + [p] * 5
+                                         + [i, i, i, p, p, p])
     return lib

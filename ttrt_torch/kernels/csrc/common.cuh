@@ -1,0 +1,323 @@
+// Device functions shared by the render kernels (render.cu, mesh.cu): the
+// float helpers that round like the JAX oracle, the procedural sky, the
+// lighting with shadow rays, and the per-pixel sample and bounce loops.
+// A kernel supplies a tracer: a type with
+//
+//   Hit  trace(ox, oy, oz, dx, dy, dz) const;    // nearest hit + fixups
+//   bool blocked(px, py, pz, ldx, ldy, ldz, has_tmax, tmax) const;
+//
+// and render_pixel runs the reference's frame loop over it. Floating point
+// rules (build with --fmad=false, no fast math; the fmaf/dot3 contractions
+// written out) are explained in render.cu.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+
+namespace {
+
+constexpr int CAM_FLOATS = 17;
+constexpr int DLIGHT_FLOATS = 6;
+constexpr int PLIGHT_FLOATS = 7;
+constexpr int MAX_DLIGHTS = 8;
+constexpr int MAX_PLIGHTS = 8;
+
+constexpr double PI_D = 3.14159265358979323846;
+constexpr float PI_F = (float)PI_D;
+constexpr float TWO_PI_F = (float)(2.0 * PI_D);
+constexpr float EPSILON_F = (float)1e-6;
+constexpr float GUARD2_F = (float)(1e-4 * 1e-4);
+constexpr float PLANE_DENOM_EPS_F = (float)1e-5;
+constexpr float PLANE_T_EPS_F = (float)1e-5;
+constexpr float CONTRIBUTION_EPS_F = (float)1e-5;
+
+// Cube axes in face order +X,-X,+Y,-Y,+Z,-Z and the per-face u/v axes with
+// the reference's uv fixups folded in (ttrt_torch/render/skybox.py; a CPU
+// test checks these literals against those tables).
+__constant__ float CUBEMAP_AXES[6][3] = {
+    {1.0f, 0.0f, 0.0f}, {-1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f},
+    {0.0f, -1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}, {0.0f, 0.0f, -1.0f}};
+__constant__ float U_AXIS[6][3] = {
+    {0.0f, 0.0f, 1.0f}, {0.0f, 0.0f, -1.0f}, {-1.0f, 0.0f, 0.0f},
+    {1.0f, 0.0f, -0.0f}, {-1.0f, 0.0f, 0.0f}, {1.0f, -0.0f, 0.0f}};
+__constant__ float V_AXIS[6][3] = {
+    {0.0f, -1.0f, 0.0f}, {0.0f, -1.0f, 0.0f}, {0.0f, 0.0f, 1.0f},
+    {-0.0f, 0.0f, 1.0f}, {0.0f, -1.0f, 0.0f}, {0.0f, -1.0f, 0.0f}};
+// face colors of the 'colors' cubemap, /255
+__constant__ float FACE_COLORS[6][3] = {
+    {1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 1.0f}, {0.0f, 1.0f, 0.0f},
+    {1.0f, 0.0f, 1.0f}, {0.0f, 0.0f, 1.0f}, {1.0f, 1.0f, 0.0f}};
+
+// ax*bx + ay*by + az*bz as XLA:CPU contracts it in the oracle's compiled
+// bounce loop: fma(az, bz, fma(ax, bx, ay*by)).
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return fmaf(az, bz, fmaf(ax, bx, ay * by));
+}
+
+// Guarded normalize (TerminalRayTracer.c:439-450): identity when the
+// squared length is <= 1e-8, else multiply by 1/sqrt.
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  float len2 = dot3(x, y, z, x, y, z);
+  if (len2 > GUARD2_F) {
+    float inv = 1.0f / sqrtf(len2);
+    x = x * inv;
+    y = y * inv;
+    z = z * inv;
+  }
+}
+
+__device__ __forceinline__ float clamp01(float v) {
+  return fminf(fmaxf(v, 0.0f), 1.0f);
+}
+
+struct Hit {
+  bool is_hit;
+  float px, py, pz;  // EPSILON-offset hit point
+  float nx, ny, nz;  // normalized normal
+  float cr, cg, cb, refl, spec;
+};
+
+// The miss record: point = origin, normal = direction (normalized),
+// reflectivity 0 (TerminalRayTracer.c:858-867).
+__device__ __forceinline__ Hit miss_hit(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  Hit h;
+  h.is_hit = false;
+  h.px = ox; h.py = oy; h.pz = oz;
+  h.nx = dx; h.ny = dy; h.nz = dz;
+  normalize3(h.nx, h.ny, h.nz);
+  h.cr = h.cg = h.cb = 0.0f;
+  h.refl = 0.0f;
+  h.spec = 0.0f;
+  return h;
+}
+
+// The hit fixups (TerminalRayTracer.c:870-886) at ray parameter t: the
+// point o + t d, pushed EPSILON back toward the origin along the guarded-
+// normalized (origin - point); the raw normal (nx, ny, nz) is normalized.
+// `center` != nullptr makes the raw normal point - center (a sphere).
+__device__ __forceinline__ void finish_hit(Hit& h, float t, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz,
+                                           const float* center, float nx,
+                                           float ny, float nz) {
+  h.is_hit = true;
+  float px = fmaf(t, dx, ox), py = fmaf(t, dy, oy), pz = fmaf(t, dz, oz);
+  if (center != nullptr) {
+    nx = px - center[0]; ny = py - center[1]; nz = pz - center[2];
+  }
+  float tox = ox - px, toy = oy - py, toz = oz - pz;
+  normalize3(tox, toy, toz);
+  h.px = fmaf(tox, EPSILON_F, px);
+  h.py = fmaf(toy, EPSILON_F, py);
+  h.pz = fmaf(toz, EPSILON_F, pz);
+  normalize3(nx, ny, nz);
+  h.nx = nx; h.ny = ny; h.nz = nz;
+}
+
+struct Lights {
+  const float* dl;  // n_dl x 6: normalized -direction, color
+  const float* pl;  // n_pl x 7: position, color, intensity
+  int n_dl, n_pl;
+};
+
+// Diffuse shading with shadow rays (apply_lighting,
+// TerminalRayTracer.c:894-963), optional Blinn-Phong specular.
+template <class Tracer>
+__device__ void apply_lighting(const Tracer& tr, const Lights& L,
+                               const Hit& h, float vx, float vy, float vz,
+                               bool specular, float& outr, float& outg,
+                               float& outb) {
+  float r = 0.0f, g = 0.0f, b = 0.0f;
+  for (int i = 0; i < L.n_dl; ++i) {
+    const float* l = L.dl + DLIGHT_FLOATS * i;
+    if (tr.blocked(h.px, h.py, h.pz, l[0], l[1], l[2], false, 0.0f))
+      continue;
+    float ndotl = fminf(dot3(h.nx, h.ny, h.nz, l[0], l[1], l[2]), 1.0f);
+    float cr = l[3] * ndotl * h.cr, cg = l[4] * ndotl * h.cg,
+          cb = l[5] * ndotl * h.cb;
+    if (specular) {
+      float hx = l[0] + vx, hy = l[1] + vy, hz = l[2] + vz;
+      normalize3(hx, hy, hz);
+      float sp = powf(clamp01(dot3(h.nx, h.ny, h.nz, hx, hy, hz)), h.spec);
+      cr = fmaf(l[3], sp, cr); cg = fmaf(l[4], sp, cg); cb = fmaf(l[5], sp, cb);
+    }
+    r = r + cr; g = g + cg; b = b + cb;
+  }
+  for (int i = 0; i < L.n_pl; ++i) {
+    const float* l = L.pl + PLIGHT_FLOATS * i;
+    float lvx = l[0] - h.px, lvy = l[1] - h.py, lvz = l[2] - h.pz;
+    float light_d2 = dot3(lvx, lvy, lvz, lvx, lvy, lvz);
+    float intensity = clamp01(l[6] / light_d2);
+    float ldx = lvx, ldy = lvy, ldz = lvz;
+    normalize3(ldx, ldy, ldz);
+    float tmax = sqrtf(light_d2);
+    if (tr.blocked(h.px, h.py, h.pz, ldx, ldy, ldz, true, tmax)) continue;
+    float ndotl = fminf(dot3(h.nx, h.ny, h.nz, ldx, ldy, ldz), 1.0f);
+    float scale = intensity * ndotl;
+    float cr = l[3] * scale * h.cr, cg = l[4] * scale * h.cg,
+          cb = l[5] * scale * h.cb;
+    if (specular) {
+      float hx = ldx + vx, hy = ldy + vy, hz = ldz + vz;
+      normalize3(hx, hy, hz);
+      float sp = intensity *
+                 powf(clamp01(dot3(h.nx, h.ny, h.nz, hx, hy, hz)), h.spec);
+      cr = fmaf(l[3], sp, cr); cg = fmaf(l[4], sp, cg); cb = fmaf(l[5], sp, cb);
+    }
+    r = r + cr; g = g + cg; b = b + cb;
+  }
+  outr = clamp01(r);
+  outg = clamp01(g);
+  outb = clamp01(b);
+}
+
+// Nearest-texel procedural sky (render_pallas.py:470-565), bit-identical to
+// the generators' float32 texels.
+__device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
+                          float& r, float& g, float& b) {
+  normalize3(dx, dy, dz);
+  float best = dx * CUBEMAP_AXES[0][0] + dy * CUBEMAP_AXES[0][1] +
+               dz * CUBEMAP_AXES[0][2];
+  int face = 0;
+  for (int f = 1; f < 6; ++f) {
+    float d = dx * CUBEMAP_AXES[f][0] + dy * CUBEMAP_AXES[f][1] +
+              dz * CUBEMAP_AXES[f][2];
+    if (d > best) {
+      best = d;
+      face = f;
+    }
+  }
+  float inv = 1.0f / best;
+  float sx = dx * inv, sy = dy * inv, sz = dz * inv;
+  const float* ax = CUBEMAP_AXES[face];
+  float t2 = sx * ax[0] + sy * ax[1] + sz * ax[2];
+  float ox = (sx - t2 * ax[0]) * 0.5f;
+  float oy = (sy - t2 * ax[1]) * 0.5f;
+  float oz = (sz - t2 * ax[2]) * 0.5f;
+  const float* ua = U_AXIS[face];
+  const float* va = V_AXIS[face];
+  float u = ox * ua[0] + oy * ua[1] + oz * ua[2];
+  float v = ox * va[0] + oy * va[1] + oz * va[2];
+  u = fminf(fmaxf(u, -0.5f), 0.5f);
+  v = fminf(fmaxf(v, -0.5f), 0.5f);
+  float fdim = (float)dim;
+  int ui = min((int)((u + 0.5f) * fdim), dim - 1);
+  int vi = min((int)((v + 0.5f) * fdim), dim - 1);
+
+  const float* hue = FACE_COLORS[face];
+  if (kind == 0) {  // 'colors': texels are exactly 0 or 255
+    r = hue[0]; g = hue[1]; b = hue[2];
+    return;
+  }
+  // 'uv_checker'. jnp.mod is floor-mod; fmodf truncates, and the two
+  // agree here only because the dividend is >= 0.
+  float u01 = (float)ui / fdim;
+  float v01 = (float)vi / fdim;
+  float checker = fmodf(floorf(u01 * 8.0f) + floorf(v01 * 8.0f), 2.0f);
+  float shade = 0.25f + 0.5f * checker;
+  float rr = clamp01(hue[0] * shade + 0.3f * u01);
+  float gg = clamp01(hue[1] * shade + 0.3f * v01);
+  float bb = hue[2] * shade;
+  // replay the generator's (x*255) -> uint8 truncation -> /255
+  r = (float)(int)(rr * 255.0f) / 255.0f;
+  g = (float)(int)(gg * 255.0f) / 255.0f;
+  b = (float)(int)(bb * 255.0f) / 255.0f;
+}
+
+// Triangle wave (TerminalRayTracer.c:225-228). jnp.mod is floor-mod; fmodf
+// truncates, and the two agree here only because t >= 0 (k >= 0).
+__device__ __forceinline__ float tri(float t) {
+  float m = fmodf(t, TWO_PI_F);
+  return m < PI_F ? m / PI_F : 2.0f - m / PI_F;
+}
+
+// The frame loop of one pixel (column col, row row of the band; the band's
+// first row and first sample are cam[15] and cam[16]): n_samples AA rays
+// (TerminalRayTracer.c:978-1011) out of N, each through the masked bounce
+// loop (render_pallas.py:718) as a real loop that exits once the ray dies
+// (a dead ray changes no accumulator, so the exit is exact), the sky fold at
+// the final (frozen-on-death) direction and the contribution-total
+// normalization. Returns the in-order sum of the samples' colors and the
+// trace count (bounces + hits * n_lights).
+template <class Tracer>
+__device__ void render_pixel(const Tracer& tr, const Lights& L,
+                             const float* cam, int col_i, int row_i, int W,
+                             int H, int N, int n_samples, int bounce_limit,
+                             bool specular, bool subtract, int sky_kind,
+                             int sky_dim, float& acc_r, float& acc_g,
+                             float& acc_b, int& traces) {
+  const float fW = (float)W, fH = (float)H, fN = (float)N;
+  const float col = (float)col_i;
+  const float row = (float)row_i + cam[15];
+  const float szc = cam[12], sw = cam[13], sh = cam[14];
+  const float pixel_w = sw / fW;
+  const float pixel_h = sh / fH;
+  const float sx0 = (col / fW) * sw - sw / 2.0f;
+  const float sy0 = -((row / fH) * sh - sh / 2.0f);
+  const int n_lights = L.n_dl + L.n_pl;
+
+  acc_r = 0.0f; acc_g = 0.0f; acc_b = 0.0f;
+  traces = 0;
+  for (int k = 0; k < n_samples; ++k) {
+    // primary ray (TerminalRayTracer.c:978-1011)
+    const float kf = (float)k + cam[16];
+    const float jit_x = tri(TWO_PI_F * kf / fN) / 2.0f * pixel_w;
+    const float jit_y = tri(PI_F * kf / fN) / 2.0f * pixel_h;
+    const float sxv = sx0 + jit_x;
+    const float syv = sy0 + jit_y;
+    // reference quirk: direction = screen offset in basis - camera ORIGIN
+    float dx = sxv * cam[0] + syv * cam[3] + szc * cam[6] - cam[9];
+    float dy = sxv * cam[1] + syv * cam[4] + szc * cam[7] - cam[10];
+    float dz = sxv * cam[2] + syv * cam[5] + szc * cam[8] - cam[11];
+    normalize3(dx, dy, dz);
+    float ox = cam[9], oy = cam[10], oz = cam[11];
+
+    float pr = 0.0f, pg = 0.0f, pb = 0.0f;
+    float contrib = 1.0f, total = 0.0f, sky_w = 0.0f;
+    for (int bounce = 0; bounce < bounce_limit; ++bounce) {
+      if (!(contrib > CONTRIBUTION_EPS_F)) break;
+      Hit h = tr.trace(ox, oy, oz, dx, dy, dz);
+      total = total + contrib;
+      traces += 1;
+      if (!h.is_hit) {
+        sky_w = contrib;
+        contrib = 0.0f;
+        break;
+      }
+      traces += n_lights;
+      float lr, lg, lb;
+      apply_lighting(tr, L, h, -dx, -dy, -dz, specular, lr, lg, lb);
+      float hw = subtract ? contrib * (1.0f - h.refl) : contrib;
+      pr = fmaf(hw, lr, pr);
+      pg = fmaf(hw, lg, pg);
+      pb = fmaf(hw, lb, pb);
+      contrib = contrib * h.refl;
+      float dn = 2.0f * dot3(dx, dy, dz, h.nx, h.ny, h.nz);
+      float rdx = fmaf(-dn, h.nx, dx), rdy = fmaf(-dn, h.ny, dy),
+            rdz = fmaf(-dn, h.nz, dz);
+      normalize3(rdx, rdy, rdz);
+      dx = rdx; dy = rdy; dz = rdz;
+      ox = h.px; oy = h.py; oz = h.pz;
+    }
+    // procedural sky fold at the final (frozen-on-death) direction
+    float skr, skg, skb;
+    sky_color(dx, dy, dz, sky_dim, sky_kind, skr, skg, skb);
+    pr = pr + sky_w * skr;
+    pg = pg + sky_w * skg;
+    pb = pb + sky_w * skb;
+    if (!subtract) {
+      // the subtract model's weights partition unity: no divide
+      const float inv_total = 1.0f / (total > 0.0f ? total : 1.0f);
+      pr = pr * inv_total;
+      pg = pg * inv_total;
+      pb = pb * inv_total;
+    }
+    acc_r = acc_r + pr;
+    acc_g = acc_g + pg;
+    acc_b = acc_b + pb;
+  }
+}
+
+}  // namespace

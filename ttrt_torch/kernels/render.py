@@ -169,9 +169,15 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
 def _fma(a, b, c):
     """``fmaf(a, b, c)``: a*b + c rounded once to float32. Emulated in
     float64, where the product of two float32 values is exact; the sum then
-    rounds twice, which differs from one rounding only on exact ties."""
+    rounds twice, which differs from one rounding only on exact ties. With
+    a float64 operand (the eager integrator's float64 mode) the result
+    stays float64, a*b + c as written."""
     f64 = lambda v: v.double() if isinstance(v, torch.Tensor) else v  # noqa: E731
-    return (f64(a) * f64(b) + f64(c)).float()
+    out = f64(a) * f64(b) + f64(c)
+    if any(isinstance(v, torch.Tensor) and v.dtype == torch.float64
+           for v in (a, b, c)):
+        return out
+    return out.float()
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -330,19 +336,19 @@ def _clamp01(v):
 
 
 def _apply_lighting(px, py, pz, nx, ny, nz, mcr, mcg, mcb, dl_vals, pl_vals,
-                    sph_vals, plane_vals, view=None, mspec=None):
+                    blocked_by, view=None, mspec=None):
     """Diffuse shading with any-hit shadow traces (apply_lighting,
     TerminalRayTracer.c:894-963); returns lit (r, g, b) clamped to [0, 1].
+    ``blocked_by(ldx, ldy, ldz, tmax)`` is the shadow test from this hit
+    point along a unit direction (``tmax`` None: no cutoff).
     ``view``/``mspec`` switch on the Blinn-Phong specular extension
     (TerminalRayTracer.c:913-916, 947-950)."""
     outr = torch.zeros_like(px)
     outg = torch.zeros_like(px)
     outb = torch.zeros_like(px)
-    oc_terms = _shadow_oc_terms(px, py, pz, sph_vals)
 
     for (lx, ly, lz, lcr, lcg, lcb) in dl_vals:
-        blocked = _shadow_any_hit(px, py, pz, lx, ly, lz, None, oc_terms,
-                                  plane_vals)
+        blocked = blocked_by(lx, ly, lz, None)
         ndotl = torch.clamp_max(_dot3(nx, ny, nz, lx, ly, lz), 1.0)
         cr, cg, cb = lcr * ndotl * mcr, lcg * ndotl * mcg, lcb * ndotl * mcb
         if view is not None:
@@ -360,8 +366,7 @@ def _apply_lighting(px, py, pz, nx, ny, nz, mcr, mcg, mcb, dl_vals, pl_vals,
         ldx, ldy, ldz = _normalize3(lvx, lvy, lvz)
         # a blocker beyond the light does not occlude (c:942)
         tmax = sqrt_rn(light_d2)
-        blocked = _shadow_any_hit(px, py, pz, ldx, ldy, ldz, tmax, oc_terms,
-                                  plane_vals)
+        blocked = blocked_by(ldx, ldy, ldz, tmax)
         ndotl = torch.clamp_max(_dot3(nx, ny, nz, ldx, ldy, ldz), 1.0)
         scale = intensity * ndotl
         cr, cg, cb = lcr * scale * mcr, lcg * scale * mcg, lcb * scale * mcb
@@ -458,14 +463,18 @@ def _sky_color_procedural(dx, dy, dz, dim: int, kind: str):
     return _procedural_texel(face, ui, vi, dim, kind)
 
 
-def _bounce_chain(ox, oy, oz, dx, dy, dz, sph_vals, plane_vals, dl_vals,
+def _bounce_chain(ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals,
                   pl_vals, bounce_limit: int, specular: bool,
                   energy_subtract: bool):
-    """The masked bounce loop (project_scene, TerminalRayTracer.c:1012-1057)
-    of the JAX kernel's ``_bounce_chain`` (render_pallas.py:718).
-    Aliveness lives in ``contrib`` (a miss records its weight in sky_w and
-    zeroes contrib); o/d freeze on the death iteration, so the final d is
-    the sky direction; counts pack bounces | hits<<5 per ray."""
+    """The bounce loop (project_scene, TerminalRayTracer.c:1012-1057) of
+    the JAX kernel's ``_bounce_chain`` (render_pallas.py:718).
+    ``trace(o, d)`` is the nearest-hit trace (a ``_TraceOut``) and
+    ``shadow_test(p)`` returns the ``blocked_by`` test of ``_apply_lighting``
+    for hit points p. Aliveness lives in ``contrib``: a miss records its
+    weight in sky_w and zeroes contrib; o/d freeze on the death iteration,
+    so the final d is the sky direction; counts pack bounces | hits<<5 per
+    ray. Each bounce computes on the live rays only; a dead ray's state
+    does not change, so this equals the JAX kernel's masked loop."""
     zero = torch.zeros_like(dx)
     pr, pg, pb = zero, zero, zero
     contrib = torch.ones_like(dx)
@@ -474,51 +483,61 @@ def _bounce_chain(ox, oy, oz, dx, dy, dz, sph_vals, plane_vals, dl_vals,
     count = torch.zeros_like(dx, dtype=torch.int32)
 
     for _ in range(bounce_limit):
-        alive = contrib > constants.CONTRIBUTION_EPS
-        hit = _trace(ox, oy, oz, dx, dy, dz, sph_vals, plane_vals, specular)
-        miss_now = alive & ~hit.is_hit
-        upd = alive & hit.is_hit
-
-        aw = torch.where(alive, contrib, 0.0)
+        live = torch.nonzero(contrib > constants.CONTRIBUTION_EPS)[:, 0]
+        if live.numel() == 0:
+            break
+        at = lambda *vs: [v[live] for v in vs]  # noqa: E731
+        lox, loy, loz, ldx, ldy, ldz, lcon = at(ox, oy, oz, dx, dy, dz,
+                                                 contrib)
+        hit = trace(lox, loy, loz, ldx, ldy, ldz)
         lr, lg, lb = _apply_lighting(
             hit.px, hit.py, hit.pz, hit.nx, hit.ny, hit.nz,
-            hit.cr, hit.cg, hit.cb, dl_vals, pl_vals, sph_vals, plane_vals,
-            view=(-dx, -dy, -dz) if specular else None,
+            hit.cr, hit.cg, hit.cb, dl_vals, pl_vals,
+            shadow_test(hit.px, hit.py, hit.pz),
+            view=(-ldx, -ldy, -ldz) if specular else None,
             mspec=hit.spec if specular else None,
         )
         if energy_subtract:
-            hw = torch.where(hit.is_hit, aw * (1.0 - hit.refl), 0.0)
+            hw = torch.where(hit.is_hit, lcon * (1.0 - hit.refl), 0.0)
         else:
-            hw = torch.where(hit.is_hit, aw, 0.0)
-        pr = _fma(hw, lr, pr)
-        pg = _fma(hw, lg, pg)
-        pb = _fma(hw, lb, pb)
-        total = total + aw
-        sky_w = torch.where(miss_now, contrib, sky_w)
-        contrib = torch.where(
-            alive, torch.where(upd, contrib * hit.refl, 0.0), contrib)
+            hw = torch.where(hit.is_hit, lcon, 0.0)
+        lpr, lpg, lpb = at(pr, pg, pb)
+        pr = pr.index_put((live,), _fma(hw, lr, lpr))
+        pg = pg.index_put((live,), _fma(hw, lg, lpg))
+        pb = pb.index_put((live,), _fma(hw, lb, lpb))
+        total = total.index_put((live,), total[live] + lcon)
+        sky_w = sky_w.index_put(
+            (live,), torch.where(hit.is_hit, sky_w[live], lcon))
+        contrib = contrib.index_put(
+            (live,), torch.where(hit.is_hit, lcon * hit.refl, 0.0))
 
-        dn = 2.0 * _dot3(dx, dy, dz, hit.nx, hit.ny, hit.nz)
-        rdx, rdy, rdz = _normalize3(_fma(-dn, hit.nx, dx),
-                                    _fma(-dn, hit.ny, dy),
-                                    _fma(-dn, hit.nz, dz))
-        dx = torch.where(upd, rdx, dx)
-        dy = torch.where(upd, rdy, dy)
-        dz = torch.where(upd, rdz, dz)
-        ox = torch.where(upd, hit.px, ox)
-        oy = torch.where(upd, hit.py, oy)
-        oz = torch.where(upd, hit.pz, oz)
-        count = count + alive.to(torch.int32) + (upd.to(torch.int32) << 5)
+        dn = 2.0 * _dot3(ldx, ldy, ldz, hit.nx, hit.ny, hit.nz)
+        rdx, rdy, rdz = _normalize3(_fma(-dn, hit.nx, ldx),
+                                    _fma(-dn, hit.ny, ldy),
+                                    _fma(-dn, hit.nz, ldz))
+        upd = hit.is_hit
+        dx = dx.index_put((live,), torch.where(upd, rdx, ldx))
+        dy = dy.index_put((live,), torch.where(upd, rdy, ldy))
+        dz = dz.index_put((live,), torch.where(upd, rdz, ldz))
+        ox = ox.index_put((live,), torch.where(upd, hit.px, lox))
+        oy = oy.index_put((live,), torch.where(upd, hit.py, loy))
+        oz = oz.index_put((live,), torch.where(upd, hit.pz, loz))
+        count = count.index_put(
+            (live,), count[live] + 1 + (upd.to(torch.int32) << 5))
     return pr, pg, pb, total, sky_w, count, dx, dy, dz
 
 
-def _gen_primary_rays(cam, cfg: RenderConfig):
+def _gen_primary_rays(cam, cfg: RenderConfig, n_rows: Optional[int] = None,
+                      n_samples: Optional[int] = None):
     """Ray generation (TerminalRayTracer.c:978-1011) in SAMPLE-MAJOR order,
-    ``idx = k * (W*H) + pixel``, with the triangle-wave AA jitter
-    (TerminalRayTracer.c:225-228, 992-993)."""
+    ``idx = k * (W*n_rows) + pixel``, with the triangle-wave AA jitter
+    (TerminalRayTracer.c:225-228, 992-993). ``n_rows``/``n_samples`` (the
+    whole frame by default) cut a band of rows and samples, which start at
+    the camera row's row and sample offsets."""
     W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
-    n_pixels = W * H
-    idx = torch.arange(n_pixels * N, device=cam.device)
+    n_pixels = W * (H if n_rows is None else n_rows)
+    n_samples = N if n_samples is None else n_samples
+    idx = torch.arange(n_pixels * n_samples, device=cam.device)
     f32 = torch.float32
     k = (idx // n_pixels).to(f32) + cam[16]
     pix = idx % n_pixels
@@ -560,6 +579,38 @@ def _tuples(flat: torch.Tensor, width: int) -> list:
             for i in range(flat.numel() // width)]
 
 
+def _finish_frame(pr, pg, pb, total, sky_w, count, dx, dy, dz, scene,
+                  cfg: RenderConfig, n_rows: int, n_samples: int,
+                  scale: float, n_lights: int):
+    """The end of a frame after the bounce chain: the procedural sky at the
+    final direction, the contribution-total normalization, the in-order
+    sum of each pixel's samples times ``scale``, and the trace count
+    (bounces + hits x n_lights). Returns ((n_rows, W) Vec3, count)."""
+    skr, skg, skb = _sky_color_procedural(dx, dy, dz, scene.skybox.dim,
+                                          scene.skybox.procedural)
+    pr = pr + sky_w * skr
+    pg = pg + sky_w * skg
+    pb = pb + sky_w * skb
+    if cfg.energy_model == "subtract":
+        inv_total = 1.0  # subtract-model weights partition unity
+    else:
+        inv_total = 1.0 / torch.where(total > 0.0, total, 1.0)
+
+    def avg(c):
+        # sample-major: sum the samples of each pixel in order, as the
+        # kernel does (a library reduction may pair them differently), then
+        # scale
+        c = (c * inv_total).reshape(n_samples, n_rows, cfg.width)
+        acc = c[0]
+        for k in range(1, n_samples):
+            acc = acc + c[k]
+        return acc * scale
+
+    traces = (count & 0x1F) + ((count >> 5) & 0x1F) * n_lights
+    return (Vec3(avg(pr), avg(pg), avg(pb)),
+            traces.sum(dtype=torch.int64))
+
+
 def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
                        count_rays: bool = True
                        ) -> Tuple[Vec3, Optional[torch.Tensor]]:
@@ -575,39 +626,25 @@ def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
     dl_vals = _tuples(packed.dlights, DLIGHT_FLOATS)
     pl_vals = _tuples(packed.plights, PLIGHT_FLOATS)
 
+    def trace(ox, oy, oz, dx, dy, dz):
+        return _trace(ox, oy, oz, dx, dy, dz, sph_vals, plane_vals,
+                      cfg.specular)
+
+    def shadow_test(px, py, pz):
+        oc_terms = _shadow_oc_terms(px, py, pz, sph_vals)
+        return lambda lx, ly, lz, tmax: _shadow_any_hit(
+            px, py, pz, lx, ly, lz, tmax, oc_terms, plane_vals)
+
     ox, oy, oz, dx, dy, dz = _gen_primary_rays(packed.cam, cfg)
     pr, pg, pb, total, sky_w, count, dx, dy, dz = _bounce_chain(
-        ox, oy, oz, dx, dy, dz, sph_vals, plane_vals, dl_vals, pl_vals,
+        ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals, pl_vals,
         cfg.bounce_limit, cfg.specular, cfg.energy_model == "subtract",
     )
-    skr, skg, skb = _sky_color_procedural(dx, dy, dz, scene.skybox.dim,
-                                          scene.skybox.procedural)
-    pr = pr + sky_w * skr
-    pg = pg + sky_w * skg
-    pb = pb + sky_w * skb
-    if cfg.energy_model == "subtract":
-        inv_total = 1.0  # subtract-model weights partition unity
-    else:
-        inv_total = 1.0 / torch.where(total > 0.0, total, 1.0)
-
-    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-
-    def avg(c):
-        # sample-major: sum the N samples of each pixel in order, as the
-        # kernel does (a library reduction may pair them differently), then
-        # scale by 1/N
-        c = (c * inv_total).reshape(N, H, W)
-        acc = c[0]
-        for k in range(1, N):
-            acc = acc + c[k]
-        return acc * (1.0 / N)
-
-    fb = Vec3(avg(pr), avg(pg), avg(pb))
-    if not count_rays:
-        return fb, None
-    n_lights = len(dl_vals) + len(pl_vals)
-    traces = (count & 0x1F) + ((count >> 5) & 0x1F) * n_lights
-    return fb, traces.sum(dtype=torch.int64)
+    fb, traces = _finish_frame(
+        pr, pg, pb, total, sky_w, count, dx, dy, dz, scene, cfg, cfg.height,
+        cfg.rays_per_pixel, 1.0 / cfg.rays_per_pixel,
+        len(dl_vals) + len(pl_vals))
+    return fb, traces if count_rays else None
 
 
 render_frame_plain.launches = 0

@@ -1,0 +1,4 @@
+"""The many-object tier: spheres and a triangle-mesh floor, the Morton
+cluster pack and the dense tester (port of ``ttrt.mesh``)."""
+
+from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene  # noqa: F401

@@ -18,6 +18,13 @@ from ttrt_torch.frames import Frame
 from ttrt_torch.vec import Vec3
 
 
+# Hit-kind tags (ObjectType enum, TerminalRayTracer.c:61-67).
+HIT_NONE = 0
+HIT_SPHERE = 1
+HIT_GROUND = 2
+HIT_TRIANGLE = 3  # extension: the triangle mesh of the many-object tier
+
+
 def _vec3(x, y, z, *, dtype, device) -> Vec3:
     return Vec3(*(torch.tensor(v, dtype=dtype, device=device) for v in (x, y, z)))
 
@@ -39,6 +46,11 @@ class Materials(NamedTuple):
             np.asarray(v), dtype=dtype, device=device).expand(n).clone()
         return Materials(Vec3.from_array(colors), full(reflectivity),
                          full(specularity))
+
+    def take(self, idx: torch.Tensor) -> "Materials":
+        """Per-ray materials gathered by object index."""
+        return Materials(Vec3(*(c[idx] for c in self.color)),
+                         self.reflectivity[idx], self.specularity[idx])
 
 
 class Spheres(NamedTuple):
@@ -200,7 +212,9 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
     """Build a Scene from numpy leaves keyed by field path
     (``"spheres.center.x"``, ``"camera.frame.basis"``, ``"skybox.packed"``,
     ...), the layout of the JAX package's ``Scene`` pytree. This carries a
-    scene, camera pose included, from the JAX package into the port."""
+    scene, camera pose included, from the JAX package into the port. Leaves
+    of a ``MeshScene`` (``"triangles.v0.x"``, ...; no grid, no pack) give a
+    ``ttrt_torch.mesh.MeshScene`` with the port's own cluster pack."""
 
     def t(key):
         return torch.as_tensor(np.array(arrays[key]), dtype=dtype,
@@ -214,11 +228,9 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
                          t(prefix + ".specularity"))
 
     packed = np.asarray(arrays["skybox.packed"]).astype(np.int32)
-    return Scene(
+    common = dict(
         spheres=Spheres(v3("spheres.center"), t("spheres.radius"),
                         mat("spheres.material")),
-        ground=Plane(v3("ground.point"), v3("ground.normal"),
-                     mat("ground.even_material"), mat("ground.odd_material")),
         directional_lights=DirectionalLights(
             v3("directional_lights.direction"),
             v3("directional_lights.color")),
@@ -231,3 +243,18 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
             t("camera.screen_height")),
         skybox=Skybox(torch.as_tensor(packed, device=device), procedural),
     )
+    if "triangles.v0.x" not in arrays:
+        return Scene(ground=Plane(v3("ground.point"), v3("ground.normal"),
+                                  mat("ground.even_material"),
+                                  mat("ground.odd_material")), **common)
+    # a MeshScene: the port builds its own cluster pack from the leaves
+    from ttrt_torch.mesh.clusters import pack_clusters
+    from ttrt_torch.mesh.scene import MeshScene
+    from ttrt_torch.mesh.triangles import Triangles
+
+    tris = Triangles(v3("triangles.v0"), v3("triangles.e1"),
+                     v3("triangles.e2"), v3("triangles.normal"),
+                     mat("triangles.material"))
+    return MeshScene(triangles=tris, grid=None,
+                     clusters=pack_clusters(common["spheres"], tris),
+                     **common)

@@ -66,12 +66,44 @@ class Vec3(NamedTuple):
     def to_array(self) -> torch.Tensor:
         return torch.stack([self.x, self.y, self.z], dim=-1)
 
+    def __add__(self, o: "Vec3") -> "Vec3":
+        return Vec3(self.x + o.x, self.y + o.y, self.z + o.z)
+
+    def __sub__(self, o: "Vec3") -> "Vec3":
+        return Vec3(self.x - o.x, self.y - o.y, self.z - o.z)
+
+    def __mul__(self, o) -> "Vec3":
+        """Pointwise vector*vector or vector*scalar."""
+        if isinstance(o, Vec3):
+            return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
+        return Vec3(self.x * o, self.y * o, self.z * o)
+
+    __rmul__ = __mul__
+
     def __neg__(self) -> "Vec3":
         return Vec3(-self.x, -self.y, -self.z)
 
     def dot(self, o: "Vec3") -> torch.Tensor:
         """TerminalRayTracer.c:461-464."""
         return self.x * o.x + self.y * o.y + self.z * o.z
+
+    def cross(self, o: "Vec3") -> "Vec3":
+        return Vec3(self.y * o.z - self.z * o.y,
+                    self.z * o.x - self.x * o.z,
+                    self.x * o.y - self.y * o.x)
+
+    def reflect(self, normal: "Vec3") -> "Vec3":
+        """v - 2 (v.n) n (TerminalRayTracer.c:626-633)."""
+        d = 2.0 * self.dot(normal)
+        return Vec3(self.x - d * normal.x, self.y - d * normal.y,
+                    self.z - d * normal.z)
+
+    def clamp(self, lo, hi) -> "Vec3":
+        return Vec3(*(torch.clamp(c, lo, hi) for c in self))
+
+    def where(self, mask, other: "Vec3") -> "Vec3":
+        """Self where ``mask``, else ``other``."""
+        return Vec3(*(torch.where(mask, a, b) for a, b in zip(self, other)))
 
     def length(self) -> torch.Tensor:
         return sqrt_rn(self.dot(self))
