@@ -7,15 +7,17 @@ exits non-zero:
 
   0. a CUDA device must be present; print the card's name and power limit;
      TF32 off.
-  1. build every kernel from this checkout's sources (one nvcc call) and
-     print each kernel's registers and spills.
+  1. build every kernel from this checkout's sources (one nvcc process a
+     source, all started together, then one link) and print each kernel's
+     registers and spills.
 
 The demo scene, through the render kernel (csrc/render.cu):
 
   2. kernel vs its plain PyTorch version, both on the card, at the demo's
      full config (480x280, 10 spp, 10 bounces): the 'colors' sky at
-     t = 0.0, 1.5, 7.3, plus one frame each with 'uv_checker', --specular
-     and --energy-model subtract. Bar: u8 flips on <= 1% of pixels, median
+     t = 0.0, 1.5, 7.3, plus one frame each with 'uv_checker', --specular,
+     --energy-model subtract and --bilinear ('uv_checker'). Bar: u8 flips
+     on <= 1% of pixels, median
      |d| < 2e-5, max |d| < 0.5/255 off the flipped pixels, trace counts
      within max(0.5%, 16).
   3. kernel vs the JAX oracle stored in tests/data/torch_port_golden.npz:
@@ -34,7 +36,8 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
 
   A. the fused kernel vs its plain version, both on the card, at 480x280,
      10 spp, 10 bounces: the 'colors' sky at t = 0.7 and 3.3 and one
-     frame each with --specular and --energy-model subtract. Bar: the
+     frame each with --specular, --energy-model subtract and --bilinear
+     ('uv_checker'). Bar: the
      phase-2 bar and equal trace counts; max |d| and the differing pixels
      are printed (they are expected to be 0).
   B. cluster_nearest ("cull" and "dense") vs the dense tester on the
@@ -50,6 +53,27 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
      (the fused kernel) and 2 frames with --renderer eager (the integrator,
      tracing through cluster_nearest), each with the launch counts set to
      0 before and read after.
+
+The Monte-Carlo path tracer (--pathtrace), through the path-tracing kernel
+(csrc/pathtrace.cu), with the demo's area light:
+
+  P1. the kernel vs its plain version, both on the card, at 480x280, 10
+      spp, 10 bounces: the 'colors' sky at the frame seeds of t = 0.7 and
+      3.3, and one frame each with 'uv_checker' and with --bilinear. Bar:
+      phase 2's; max |d|, the differing pixels and both sides' work
+      (nearest-hit traces, hits, unblocked shadow rays) are printed (the
+      differences are expected to be 0).
+  P2. the kernel vs JAX's kernel stored in
+      tests/data/torch_port_golden_pathtrace.npz (PATHTRACE_BAR).
+  P3. timing: the wrapper (CUDA events, median of 20), the kernel alone
+      (torch.profiler), the plain version; traces a frame and Mray/s from
+      the plain version's count; the kernel's bound from the FP32
+      operations its work needs (the PT_* counts).
+  P4. the main path: 30 frames of run_animation(..., pathtrace=True), the
+      launch counts set to 0 before and read after, then one frame of the
+      eager estimator on the card, whose image mean must be within 0.01 of
+      the kernel's frame, and one frame of --pathtrace --scene many (the
+      estimator, tracing through cluster_nearest).
 
 Prints, before the last line, one JSON line of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
@@ -74,6 +98,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 MESH_GOLDEN = os.path.join(REPO, "tests", "data",
                            "torch_port_golden_mesh.npz")
+PT_GOLDEN = os.path.join(REPO, "tests", "data",
+                         "torch_port_golden_pathtrace.npz")
 KNIFE_CAP = 0.20  # K1 | K2 share of pixels (tests/test_pallas_kernel.py)
 # the many-object scene has far more silhouettes (tests/test_mesh_fused.py)
 MESH_KNIFE_CAP = 0.40
@@ -89,6 +115,21 @@ N_FRAMES = 60
 MESH_FRAMES = 30
 EAGER_FRAMES = 2
 N_SPHERES = 10_000
+PT_FRAMES = 30
+# PATHTRACE_BAR: the path-tracing kernel (or its plain version) against
+# JAX's kernel on the same scene and frame seed. Both draw the same random
+# stream, so most pixels agree to float32 rounding; a ray whose direction
+# XLA's rsqrt and fused multiply-adds round differently can cross a knife
+# edge and take another path. At most PT_SHARE of the pixels may differ by
+# more than PT_TOL in a channel, and the image means agree within
+# PT_MEAN_TOL. Measured on the CPU (tests/pathtrace_gap.py): 0 pixels at
+# 16x8x2x3, 3 and 7 of 2048 on the 10-bounce golden.
+PT_TOL = 1e-5
+PT_SHARE = 0.02
+PT_MEAN_TOL = 1e-3
+# The eager estimator against the kernel: two random streams, one
+# estimator; image means of 10-sample frames (tests/test_pathtrace_pallas.py)
+PT_ESTIMATOR_MEAN_TOL = 0.01
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # FP32 outside the tensor cores, and device memory.
@@ -101,6 +142,18 @@ DEMO_SHADOW_PLANE_OPS = 14  # render.cu blocked(), the ground plane
 SLAB_OPS = 25  # mesh.cu quarter(): 6 sub, 6 mul, 13 min/max
 SPHERE_OPS = 18  # mesh.cu sphere_t(), no root (a miss)
 TRI_OPS = 46  # mesh.cu tri_t(): 3 cross products, 4 dots, 1 div, ...
+# pathtrace.cu and the common.cuh device functions it calls (cosf and sinf
+# count 1 each; comparisons, conversions and the Russian roulette are left
+# out, so the count is a floor):
+PT_TRACE_OPS = 20  # DemoTracer::trace(): setup (a, 1/2a) 6, the plane 14
+PT_TRACE_SPHERE_OPS = 20  # trace(), one sphere, no root
+PT_HIT_OPS = 35  # finish_hit() (plane form: no center)
+PT_MISS_OPS = 10  # miss_hit(): one normalize3
+PT_SHADOW_SPHERE_OPS = 21  # blocked() with tmax, one sphere
+PT_SHADOW_PLANE_OPS = 14  # blocked(), the plane; a blocked ray's floor
+PT_NEE_OPS = 61  # a light sample, direction, falloff and radiance update
+PT_CONTINUE_OPS = 23  # the branch draw, a mirror direction, normalize3
+PT_PATH_OPS = 129  # the jittered primary ray (44), the sky and the sum (85)
 
 
 def quantize_u8(img) -> np.ndarray:
@@ -201,6 +254,58 @@ def check_golden(render, device, path: str = GOLDEN,
         stats = golden_bar(g[f"fb{i}"], fb.to_array().cpu().numpy(),
                            g[f"k1_{i}"], g[f"k2_{i}"], int(g[f"rays{i}"]),
                            int(rays), knife_cap, flip_cap)
+        out.append({"t": float(t), **stats})
+    return out
+
+
+def pathtrace_stats(ref, out) -> dict:
+    """PATHTRACE_BAR's statistics of (H, W, 3) frames: max |d|, the pixels
+    that differ by more than PT_TOL in a channel and their share, and the
+    difference of the image means."""
+    d = np.abs(np.asarray(ref, np.float64) - np.asarray(out, np.float64))
+    differ = (d > PT_TOL).any(axis=-1)
+    return {"max_abs": float(d.max()), "differ_px": int(differ.sum()),
+            "share": float(differ.mean()),
+            "mean_delta": float(np.mean(out) - np.mean(ref))}
+
+
+def pathtrace_bar(ref, out) -> dict:
+    """PATHTRACE_BAR on (H, W, 3) frames of the same scene and seed."""
+    stats = pathtrace_stats(ref, out)
+    assert stats["share"] <= PT_SHARE, stats
+    assert abs(stats["mean_delta"]) < PT_MEAN_TOL, stats
+    return stats
+
+
+def check_pathtrace_golden(pathtrace_frame, device,
+                           bar=pathtrace_bar) -> list:
+    """Path-trace every frame of the stored JAX path-tracer golden with
+    ``pathtrace_frame`` (a ``kernels.pathtrace.pathtrace_frame``-like
+    function) on ``device`` and hold it to ``bar`` (PATHTRACE_BAR; or
+    ``pathtrace_stats`` only to measure). Returns one stats dict per
+    frame."""
+    import torch
+
+    from ttrt_torch.config import RenderConfig
+    from ttrt_torch.render.pathtrace import AreaLights
+    from ttrt_torch.scene import scene_from_numpy
+
+    g = np.load(PT_GOLDEN)
+    width, height, spp, bounces = (int(v) for v in g["config"])
+    cfg = RenderConfig(width=width, height=height, rays_per_pixel=spp,
+                       bounce_limit=bounces)
+    lights = AreaLights.from_numpy(
+        {k[len("lights."):]: g[k] for k in g.files
+         if k.startswith("lights.")}, dtype=torch.float32, device=device)
+    out = []
+    for i, t in enumerate(g["times"]):
+        prefix = f"scene{i}."
+        leaves = {k[len(prefix):]: g[k] for k in g.files
+                  if k.startswith(prefix)}
+        scene = scene_from_numpy(leaves, "colors", device=device,
+                                 dtype=torch.float32)
+        fb, _ = pathtrace_frame(scene, lights, cfg, int(g[f"seed{i}"]))
+        stats = bar(g[f"fb{i}"], fb.to_array().cpu().numpy())
         out.append({"t": float(t), **stats})
     return out
 
@@ -363,6 +468,27 @@ def frame_work(scene, cfg, boxes) -> dict:
     return out
 
 
+def pathtrace_ops(work, n_spheres: int, n_lights: int,
+                  n_paths: int) -> float:
+    """FP32 operations a path-traced frame needs, from its work (nearest-
+    hit traces, hits, unblocked shadow rays; the plain version's count)
+    and the PT_* counts: every trace tests every sphere and the plane, a
+    hit is fixed up and continued, a miss normalized; every hit samples
+    each light; an unblocked shadow ray tests every sphere and the plane,
+    a blocked one at least the plane's test; every path makes its
+    primary ray and folds the sky."""
+    nearest, hits, unblocked = (int(v) for v in work)
+    shadow = hits * n_lights
+    return float(
+        nearest * (PT_TRACE_OPS + n_spheres * PT_TRACE_SPHERE_OPS)
+        + hits * (PT_HIT_OPS + PT_CONTINUE_OPS + n_lights * PT_NEE_OPS)
+        + (nearest - hits) * PT_MISS_OPS
+        + unblocked * (n_spheres * PT_SHADOW_SPHERE_OPS
+                       + PT_SHADOW_PLANE_OPS)
+        + (shadow - unblocked) * PT_SHADOW_PLANE_OPS
+        + n_paths * PT_PATH_OPS)
+
+
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` launches, CUDA events."""
     import torch
@@ -430,7 +556,8 @@ def main() -> int:
     # -- phase 2: kernel vs plain version on the card -------------------------
     cases = [("colors", 0.0, {}), ("colors", 1.5, {}), ("colors", 7.3, {}),
              ("uv_checker", 1.5, {}), ("colors", 1.5, {"specular": True}),
-             ("colors", 1.5, {"energy_model": "subtract"})]
+             ("colors", 1.5, {"energy_model": "subtract"}),
+             ("uv_checker", 1.5, {"skybox_bilinear": True})]
     max_abs_err = 0.0
     for sky, t, flags in cases:
         scene = scene_at(sky, t)
@@ -538,6 +665,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call renders a frame
     }]
     kernels += mesh_phases(card, dev, full)
+    kernels.append(pathtrace_phases(card, dev, full))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -586,11 +714,13 @@ def mesh_phases(card: str, dev, full) -> list:
     K = pack.kb_sph + pack.kb_tri
     print(f"phase A: {N_SPHERES} spheres, {scene.triangles.count} "
           f"triangles, {K} subclusters of 128 objects")
-    cases = [(0.7, {}), (3.3, {}), (3.3, {"specular": True}),
-             (3.3, {"energy_model": "subtract"})]
+    cases = [(0.7, "colors", {}), (3.3, "colors", {}),
+             (3.3, "colors", {"specular": True}),
+             (3.3, "colors", {"energy_model": "subtract"}),
+             (3.3, "uv_checker", {"skybox_bilinear": True})]
     fused_err = 0.0
-    for t, flags in cases:
-        scene = scene_at(t)
+    for t, sky, flags in cases:
+        scene = scene_at(t, sky)
         cfg = full.with_(**flags)
         t0 = time.perf_counter()
         fb_k, rays_k = fused_cuda(scene, cfg)
@@ -601,7 +731,8 @@ def mesh_phases(card: str, dev, full) -> list:
         t2 = time.perf_counter()
         stats = exact_bar(frame(fb_p), frame(fb_k), rays_p, rays_k)
         fused_err = max(fused_err, stats["max_abs"])
-        print(f"phase A: t={t} {flags or ''} {json.dumps(stats)} (kernel "
+        print(f"phase A: {sky} t={t} {flags or ''} {json.dumps(stats)} "
+              f"(kernel "
               f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s, host clock)")
 
     # -- phase B: cluster_nearest vs the dense tester ------------------------
@@ -747,6 +878,168 @@ def mesh_phases(card: str, dev, full) -> list:
         "bound_by": near_bound[1],
         "library_ms": None,  # no PyTorch call finds a nearest hit
     }]
+
+
+def pathtrace_phases(card: str, dev, full) -> dict:
+    """Phases P1-P4; returns the path-tracing kernel's entry of the
+    kernels line."""
+    import torch
+
+    from ttrt_torch import app, assets
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import pathtrace
+    from ttrt_torch.kernels.mesh import cluster_nearest_cuda
+    from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.render import pathtrace as estimator
+    from ttrt_torch.scene import demo_scene
+    from ttrt_torch.utils.profiling import StageTimers
+
+    pt_cuda = pathtrace.pathtrace_frame_cuda
+    pt_plain = pathtrace.pathtrace_frame_plain
+    lights = estimator.default_area_lights(full, dev)
+
+    def scene_at(sky: str, t: float):
+        scene = demo_scene(assets.load_skybox(sky, device=dev), full.width,
+                           full.height, dtype=torch.float32, device=dev)
+        return scene.with_camera_frame(
+            orbit_camera_frame(t, dtype=torch.float32, device=dev))
+
+    def frame(fb) -> np.ndarray:
+        out = fb.to_array().cpu().numpy()
+        assert out.shape == (full.height, full.width, 3), out.shape
+        assert np.isfinite(out).all()
+        assert out.min() >= 0.0 and out.max() <= 1.0
+        return out
+
+    # -- phase P1: the path-tracing kernel vs its plain version --------------
+    cases = [("colors", 0.7, {}), ("colors", 3.3, {}),
+             ("uv_checker", 3.3, {}),
+             ("uv_checker", 3.3, {"skybox_bilinear": True})]
+    pt_err = 0.0
+    for sky, t, flags in cases:
+        scene = scene_at(sky, t)
+        cfg = full.with_(**flags)
+        seed = pathtrace.frame_seed(0, t)
+        fb_k, work_k = pt_cuda(scene, lights, cfg, seed)
+        fb_p, work_p = pt_plain(scene, lights, cfg, seed)
+        torch.cuda.synchronize()
+        stats = plain_bar(
+            frame(fb_p), frame(fb_k),
+            pathtrace.total_traces(work_p, lights.count),
+            pathtrace.total_traces(work_k, lights.count))
+        d = np.abs(frame(fb_p).astype(np.float64) - frame(fb_k))
+        stats["diff_px"] = int((d > 0).any(axis=-1).sum())
+        stats["work"] = [int(v) for v in work_k]
+        stats["work_ref"] = [int(v) for v in work_p]
+        pt_err = max(pt_err, stats["max_abs"])
+        print(f"phase P1: {sky} t={t} seed={seed} {flags or ''} "
+              f"{json.dumps(stats)}")
+
+    # -- phase P2: the kernel vs the stored JAX kernel -----------------------
+    for stats in check_pathtrace_golden(pt_cuda, dev):
+        print(f"phase P2: golden {json.dumps(stats)}")
+    torch.cuda.synchronize()
+
+    # -- phase P3: timing and bound ------------------------------------------
+    scene = scene_at("colors", 0.7)
+    seed = pathtrace.frame_seed(0, 0.7)
+    _, work = pt_plain(scene, lights, full, seed)
+    traces = pathtrace.total_traces(work, lights.count)
+    pt_ms = _median_ms(
+        lambda: pt_cuda(scene, lights, full, seed, count_rays=False))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            pt_cuda(scene, lights, full, seed, count_rays=False)
+        torch.cuda.synchronize()
+    (row,) = [e for e in prof.key_averages() if "pathtrace_kernel" in e.key]
+    pt_kernel_ms = row.self_device_time_total / row.count / 1e3
+    pt_plain_ms = _median_ms(
+        lambda: pt_plain(scene, lights, full, seed, count_rays=False),
+        reps=3, warmup=1)
+    n_px = full.width * full.height
+    n_sph = scene.spheres.count
+    pt_bound = bound_ms(
+        pathtrace_ops(work, n_sph, lights.count, n_px * full.rays_per_pixel),
+        4 * (17 + 9 * n_sph + 16 + 8 * lights.count) + 20 * n_px)
+    print(f"phase P3 [{card}]: path tracer, 480x280x10spp, 10 bounces, "
+          f"colors t=0.7: work (nearest-hit traces, hits, unblocked shadow "
+          f"rays) {[int(v) for v in work]} = {traces} traces; wrapper "
+          f"{pt_ms:.4f} ms/frame = {traces / pt_ms / 1e3:.1f} Mray/s (CUDA "
+          f"events, median of 20), kernel alone {pt_kernel_ms:.4f} ms = "
+          f"{traces / pt_kernel_ms / 1e3:.1f} Mray/s (torch.profiler, mean "
+          f"of 20), plain version {pt_plain_ms:.3f} ms (median of 3); bound "
+          f"{pt_bound[0]:.4f} ms by {pt_bound[1]}")
+
+    # -- phase P4: the --pathtrace main path ----------------------------------
+    sink = io.BytesIO()
+    timers = StageTimers()
+    unpaced = full.with_(frame_rate=1e9)
+    pt_cuda.launches = 0
+    pt_plain.launches = 0
+    t0 = time.perf_counter()
+    app.run_animation(unpaced, "colors", max_frames=PT_FRAMES,
+                      interactive=False, encode="device", device=dev,
+                      stream=sink, timers=timers, pathtrace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_launches = pt_cuda.launches, pt_plain.launches
+    assert launches == PT_FRAMES, launches
+    assert plain_launches == 0, plain_launches
+    validate_stream(sink.getvalue(), full.width, full.height, PT_FRAMES)
+    split = {name: round(st["mean_ms"], 4)
+             for name, st in timers.summary().items()}
+    print(f"phase P4 [{card}]: --pathtrace: {PT_FRAMES} frames in "
+          f"{wall:.3f} s = {PT_FRAMES / wall:.2f} fps end to end (pacing "
+          f"off), stage means (ms) {json.dumps(split)}; kernel launches "
+          f"{launches}, plain launches {plain_launches}")
+    fb_k, _ = pt_cuda(scene, lights, full, seed, count_rays=False)
+    t0 = time.perf_counter()
+    fb_e = estimator.pathtrace_frame(
+        scene, lights, full, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    mean_k, mean_e = float(frame(fb_k).mean()), float(frame(fb_e).mean())
+    print(f"phase P4 [{card}]: the eager estimator, one frame in "
+          f"{eager_s:.3f} s (host clock): image mean {mean_e:.6f} against "
+          f"the kernel's {mean_k:.6f}")
+    assert abs(mean_e - mean_k) < PT_ESTIMATOR_MEAN_TOL, (mean_e, mean_k)
+    # --pathtrace --scene many: the estimator, tracing the MeshScene
+    # through cluster_nearest
+    many = many_sphere_scene(assets.load_skybox("colors", device=dev),
+                             N_SPHERES, full.width, full.height,
+                             dtype=torch.float32, device=dev)
+    for fn in (pt_cuda, pt_plain, cluster_nearest_cuda):
+        fn.launches = 0
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    app.run_animation(unpaced, "colors", max_frames=1, interactive=False,
+                      encode="device", scene=many, stream=sink,
+                      pathtrace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    validate_stream(sink.getvalue(), full.width, full.height, 1)
+    many_launches = [fn.launches for fn in (pt_cuda, pt_plain,
+                                            cluster_nearest_cuda)]
+    print(f"phase P4 [{card}]: --pathtrace --scene many ({N_SPHERES} "
+          f"spheres), one frame through the eager estimator in {wall:.3f} s "
+          f"(host clock); launches path tracer {many_launches[0]} (plain "
+          f"{many_launches[1]}), cluster_nearest {many_launches[2]}")
+    assert many_launches[:2] == [0, 0] and many_launches[2] > 0, many_launches
+
+    return {
+        "name": "pathtrace",
+        "route": "cuda",
+        "source": "ttrt_torch/kernels/csrc/pathtrace.cu",
+        "replaces": "ttrt/kernels/pathtrace_pallas.py:101",
+        "launches": launches,
+        "max_abs_err": pt_err,
+        "ms": pt_ms,
+        "plain_ms": pt_plain_ms,
+        "bound_ms": pt_bound[0],
+        "bound_by": pt_bound[1],
+        "library_ms": None,  # no single PyTorch call renders a frame
+    }
 
 
 if __name__ == "__main__":

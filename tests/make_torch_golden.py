@@ -1,10 +1,10 @@
 """Write the JAX oracle frames for the port: tests/data/torch_port_golden.npz
-(the demo scene) and tests/data/torch_port_golden_mesh.npz (the
-many-object scene).
+(the demo scene), tests/data/torch_port_golden_mesh.npz (the many-object
+scene) and tests/data/torch_port_golden_pathtrace.npz (the path tracer).
 
 The machine with the card has no JAX, so the checks of the CUDA kernels
-against the JAX oracle (``chip_smoke.py``, phases 3 and C) read the oracle
-from these files. For each scene time in TIMES a file holds:
+against the JAX oracle (``chip_smoke.py``, phases 3, C and P2) read the
+oracle from these files. For each scene time in TIMES a file holds:
 
   - ``scene{i}.<field path>``: the JAX Scene's (or MeshScene's) leaves,
     camera pose included, for ``ttrt_torch.scene.scene_from_numpy``;
@@ -14,14 +14,20 @@ from these files. For each scene time in TIMES a file holds:
   - ``rays{i}``: the oracle's trace count;
 
 plus ``times`` and ``config`` (width, height, spp, bounces; the mesh file
-adds n_spheres).
+adds n_spheres). The path tracer's file holds, for each time, the scene's
+leaves, the frame seed ``seed{i}`` (the JAX app's, ttrt/app.py:142-147)
+and ``fb{i}``, the JAX kernel's frame (``pathtrace_frame_pallas`` in
+interpret mode), plus the area light's leaves ``lights.<field path>``.
 
-Run from the repository root:  python tests/make_torch_golden.py [demo|mesh]
-(both files without an argument). ``tests/test_torch_golden.py``
-regenerates the arrays in memory and checks that each stored file equals
-them (the many-object file without its knife masks, whose two minutes of
-JAX renders are too slow for the tests; the masks are a function of the
-arrays it does check).
+Run from the repository root:  python tests/make_torch_golden.py
+[demo|mesh|pathtrace] (all three files without an argument).
+``tests/test_torch_golden.py`` regenerates the first two files' arrays in
+memory and checks that each stored file equals them (the many-object file
+without its knife masks, whose two minutes of JAX renders are too slow for
+the tests; the masks are a function of the arrays it does check).
+``tests/test_torch_pathtrace_kernel.py`` checks the path tracer's stored
+scenes, light and seeds; its frames take a minute of JAX's interpret
+mode.
 """
 
 from __future__ import annotations
@@ -46,16 +52,25 @@ from knife_util import knife_mask, quantize_u8  # noqa: E402
 from ttrt.assets import make_colors_skybox, skybox_from_faces  # noqa: E402
 from ttrt.config import RenderConfig  # noqa: E402
 from ttrt.frames import orbit_camera_frame  # noqa: E402
+from ttrt.kernels.pathtrace_pallas import (_mix32,  # noqa: E402
+                                           pathtrace_frame_pallas)
 from ttrt.mesh import many_sphere_scene  # noqa: E402
 from ttrt.render.integrator import render_frame  # noqa: E402
+from ttrt.render.pathtrace import AreaLights  # noqa: E402
 from ttrt.scene import demo_scene  # noqa: E402
 
 GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden.npz")
 MESH_GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden_mesh.npz")
+PT_GOLDEN_PATH = os.path.join(_TESTS, "data",
+                              "torch_port_golden_pathtrace.npz")
 WIDTH, HEIGHT, SPP, BOUNCES = 64, 32, 2, 10
 TIMES = (0.7, 3.3)
 # more than 4 sweep chunks of the JAX fused kernel (tests/test_mesh_fused.py)
 MESH_SPHERES = 2240
+# the path tracer's golden: 10 bounces, whose interpret-mode compile takes
+# about a minute
+PT_WIDTH, PT_HEIGHT, PT_SPP, PT_BOUNCES = 64, 32, 4, 10
+PT_SEED = 0
 # the 'colors' cubemap is one color per face, so its size changes no frame;
 # 16 keeps the stored texels small
 SKY_DIM = 16
@@ -150,11 +165,54 @@ def mesh_golden_arrays(knife: bool = True) -> dict:
                    [WIDTH, HEIGHT, SPP, BOUNCES, MESH_SPHERES], knife)
 
 
+def jax_area_lights():
+    """The demo's area light (ttrt/app.py:42-53), float32."""
+    return AreaLights.create(positions=[[0.0, 3.0, 0.0]], radii=[0.5],
+                             colors=[[1.0, 1.0, 1.0]], intensities=[10.0],
+                             dtype=jnp.float32)
+
+
+def jax_frame_seed(seed: int, t: float) -> int:
+    """The JAX app's per-frame kernel seed (ttrt/app.py:142-147), with the
+    scene time a float32 as the app's jitted step receives it."""
+    tq = (jnp.float32(t) * 1000.0).astype(jnp.int32).astype(jnp.uint32)
+    return int((_mix32(jnp.uint32(seed) * jnp.uint32(0x9E3779B9))
+                ^ tq).astype(jnp.int32))
+
+
+def pathtrace_golden_arrays() -> dict:
+    """The path tracer's golden: the JAX kernel in interpret mode at
+    PT_WIDTH x PT_HEIGHT x PT_SPP x PT_BOUNCES, frame seeds of PT_SEED."""
+    cfg = RenderConfig(width=PT_WIDTH, height=PT_HEIGHT,
+                       rays_per_pixel=PT_SPP, bounce_limit=PT_BOUNCES,
+                       dtype=jnp.float32)
+    lights = jax_area_lights()
+    out = {
+        "times": np.asarray(TIMES, np.float64),
+        "config": np.asarray([PT_WIDTH, PT_HEIGHT, PT_SPP, PT_BOUNCES],
+                             np.int64),
+    }
+    for key, value in scene_leaves(lights).items():
+        out[f"lights.{key}"] = value
+    for i, t in enumerate(TIMES):
+        scene = jax_scene(t, PT_WIDTH, PT_HEIGHT)
+        seed = jax_frame_seed(PT_SEED, t)
+        fb = pathtrace_frame_pallas(scene, lights, cfg, seed, interpret=True)
+        for key, value in scene_leaves(scene).items():
+            out[f"scene{i}.{key}"] = value
+        out[f"seed{i}"] = np.asarray(seed, np.int64)
+        out[f"fb{i}"] = np.asarray(fb.to_array(), np.float32)
+    return out
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["demo", "mesh"]
+    which = sys.argv[1:] or ["demo", "mesh", "pathtrace"]
     for name in which:
-        path, arrays = {"demo": (GOLDEN_PATH, golden_arrays),
-                        "mesh": (MESH_GOLDEN_PATH, mesh_golden_arrays)}[name]
+        path, arrays = {
+            "demo": (GOLDEN_PATH, golden_arrays),
+            "mesh": (MESH_GOLDEN_PATH, mesh_golden_arrays),
+            "pathtrace": (PT_GOLDEN_PATH, pathtrace_golden_arrays),
+        }[name]
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **arrays())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")

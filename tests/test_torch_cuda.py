@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: the demo render kernel and the two
-many-object kernels (fused whole-frame, cluster_nearest) against their
-plain versions and the stored JAX goldens, and their wrappers' checks.
+"""The CUDA kernels on the card: the demo render kernel, the two
+many-object kernels (fused whole-frame, cluster_nearest) and the
+path-tracing kernel against their plain versions and the stored JAX
+goldens, and their wrappers' checks.
 Marked ``cuda``; each test skips without a CUDA device. The machine with
 the card has no JAX, so run these without the repository's conftest (which
 imports JAX):
@@ -16,9 +17,10 @@ import chip_smoke
 from ttrt_torch import assets
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
-from ttrt_torch.kernels import mesh, mesh_fused, render
+from ttrt_torch.kernels import mesh, mesh_fused, pathtrace, render
 from ttrt_torch.mesh.dense import dense_nearest
 from ttrt_torch.mesh.scene import many_sphere_scene, trace_ray_mesh
+from ttrt_torch.render.pathtrace import default_area_lights
 from ttrt_torch.scene import Spheres, demo_scene
 from ttrt_torch.vec import Vec3
 
@@ -73,8 +75,8 @@ def test_kernel_refuses_too_many_spheres(cuda):
         render.render_frame_cuda(scene._replace(spheres=many), cfg)
 
 
-def _mesh_scene(t, cfg, device, n_spheres=2240):
-    scene = many_sphere_scene(assets.load_skybox("colors", device=device),
+def _mesh_scene(t, cfg, device, n_spheres=2240, sky="colors"):
+    scene = many_sphere_scene(assets.load_skybox(sky, device=device),
                               n_spheres, cfg.width, cfg.height,
                               dtype=torch.float32, device=device)
     return scene.with_camera_frame(
@@ -145,3 +147,51 @@ def test_trace_ray_mesh_on_the_card_takes_the_kernel_or_raises(cuda):
         trace_ray_mesh(scene, Vec3(*(c.double() for c in o)),
                        Vec3(*(c.double() for c in d)))
     assert mesh.cluster_nearest_cuda.launches == before + 1
+
+
+def test_bilinear_sky_kernels_match_plain_versions(cuda):
+    """--bilinear on the 'uv_checker' sky through the demo and the fused
+    kernel: the phase-2 bar against the plain versions."""
+    cfg = RenderConfig(width=97, height=41, rays_per_pixel=3,
+                       bounce_limit=10, skybox_bilinear=True)
+    for kernel, plain, scene in [
+            (render.render_frame_cuda, render.render_frame_plain,
+             _scene("uv_checker", 2.2, cfg, cuda)),
+            (mesh_fused.render_frame_mesh_fused,
+             mesh_fused.render_frame_mesh_fused_plain,
+             _mesh_scene(3.3, cfg, cuda, sky="uv_checker"))]:
+        fb_k, rays_k = kernel(scene, cfg)
+        fb_p, rays_p = plain(scene, cfg)
+        torch.cuda.synchronize()
+        chip_smoke.plain_bar(fb_p.to_array().cpu().numpy(),
+                             fb_k.to_array().cpu().numpy(), rays_p, rays_k)
+
+
+def test_pathtrace_kernel_matches_plain_version(cuda):
+    """The path-tracing kernel draws its plain version's random stream and
+    runs its float operations: equal frames and equal work on the
+    'colors' and 'uv_checker' skies, nearest and bilinear."""
+    cfg = RenderConfig(width=97, height=41, rays_per_pixel=3,
+                       bounce_limit=10)
+    lights = default_area_lights(cfg, cuda)
+    for sky, bilinear in [("colors", False), ("uv_checker", False),
+                          ("uv_checker", True)]:
+        c = cfg.with_(skybox_bilinear=bilinear)
+        scene = _scene(sky, 2.2, c, cuda)
+        seed = pathtrace.frame_seed(5, 2.2)
+        before = pathtrace.pathtrace_frame_cuda.launches
+        fb_k, work_k = pathtrace.pathtrace_frame(scene, lights, c, seed)
+        assert pathtrace.pathtrace_frame_cuda.launches == before + 1
+        fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, c,
+                                                       seed)
+        torch.cuda.synchronize()
+        out = fb_k.to_array().cpu().numpy()
+        assert np.isfinite(out).all() and 0 <= out.min() <= out.max() <= 1
+        np.testing.assert_array_equal(out, fb_p.to_array().cpu().numpy())
+        assert work_k.tolist() == work_p.tolist(), (sky, bilinear)
+
+
+def test_pathtrace_kernel_meets_stored_golden(cuda):
+    for stats in chip_smoke.check_pathtrace_golden(
+            pathtrace.pathtrace_frame_cuda, cuda):
+        assert stats["share"] <= chip_smoke.PT_SHARE

@@ -19,6 +19,7 @@ from ttrt.render.integrator import render_frame as jax_render_frame
 
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.kernels import mesh, mesh_fused
+from ttrt_torch.scene import Skybox
 
 torch.set_num_threads(1)  # the test workers share the cores
 
@@ -100,10 +101,15 @@ def test_fused_bands_and_sample_slices_sum_to_the_frame():
 @pytest.mark.parametrize("change,match", [
     ({"dtype": torch.float64}, "float32"),
     ({"bounce_limit": 17}, "bounce_limit"),
-    ({"skybox_bilinear": True}, "not yet ported"),
+    # bilinear runs in the kernel on procedural skies; on an image cubemap
+    # it is refused with the cubemap
+    ({"skybox_bilinear": True, "sky": None}, "not yet ported"),
 ])
 def test_fused_refuses_unported_configs(change, match):
     _, ts = _pair(200, 8, 4, cells=3)
+    change = dict(change)
+    if "sky" in change:
+        ts = ts._replace(skybox=Skybox(ts.skybox.packed, change.pop("sky")))
     cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2)
     with pytest.raises(ConfigError, match=match):
         mesh_fused.render_frame_mesh_fused(ts, cfg.with_(**change))

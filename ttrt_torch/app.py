@@ -1,12 +1,13 @@
 """CLI application: the animated frame loop and still rendering of the demo
-scene and the many-object scene (port of ``ttrt.app``).
+scene and the many-object scene, by ray tracing or by Monte-Carlo path
+tracing (port of ``ttrt.app``).
 
 Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
 
     host clock t -> frame_step(t, cam_offset), all on the device:
         orbit camera pose
-        render (a CUDA kernel, or the eager integrator; the kernel's plain
-            version with --device cpu)
+        render (a CUDA kernel, or the eager integrator or path tracer; the
+            kernel's plain version with --device cpu)
         quantize + ANSI-encode
     -> one device->host uint8 copy -> one write(2) -> pace -> fps HUD
 
@@ -31,9 +32,10 @@ import torch
 from ttrt_torch import assets
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
-from ttrt_torch.kernels import mesh_fused, render
+from ttrt_torch.kernels import mesh_fused, pathtrace, render
 from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene
 from ttrt_torch.render import integrator
+from ttrt_torch.render import pathtrace as estimator
 from ttrt_torch.scene import Scene, demo_scene
 from ttrt_torch.term.display import KeyboardInput, SigintFlag, TerminalDisplay
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
@@ -67,17 +69,49 @@ def _pick_renderer(scene, cfg: RenderConfig, renderer: str = "auto"):
         raise ConfigError(f"unknown renderer {renderer!r}")
     if renderer == "eager" or (renderer == "auto"
                                and cfg.dtype != torch.float32):
-        if (isinstance(scene, MeshScene) and cfg.dtype != torch.float32
-                and scene.spheres.radius.device.type != "cpu"):
-            raise ConfigError("--f64 with --scene many needs --device cpu: "
-                              "the card traces a MeshScene through the "
-                              "float32 cluster_nearest kernel")
+        _check_f64_mesh_on_cpu(scene, cfg)
         return integrator.render_frame
     if isinstance(scene, MeshScene):
         mesh_fused.check_supported(scene, cfg)
         return mesh_fused.render_frame_mesh_fused
     render.check_supported(scene, cfg)
     return render.render_frame
+
+
+def _check_f64_mesh_on_cpu(scene, cfg: RenderConfig) -> None:
+    """The eager paths trace a ``MeshScene`` on the card through the
+    float32 ``cluster_nearest`` kernel: float64 needs the CPU."""
+    if (isinstance(scene, MeshScene) and cfg.dtype != torch.float32
+            and scene.spheres.radius.device.type != "cpu"):
+        raise ConfigError("--f64 with --scene many needs --device cpu: "
+                          "the card traces a MeshScene through the "
+                          "float32 cluster_nearest kernel")
+
+
+def _pick_pathtracer(scene, lights, cfg: RenderConfig,
+                     renderer: str = "auto") -> bool:
+    """The ``--pathtrace`` path (``ttrt.app.build_pathtrace_frame_step``,
+    app.py:73-80): True for the path-tracing kernel, False for the eager
+    estimator (``render.pathtrace.pathtrace_frame``).
+
+    - ``eager``, or ``auto`` in float64 or on a ``MeshScene``: the
+      estimator;
+    - otherwise the kernel (the CUDA kernel for CUDA tensors, its plain
+      version for CPU tensors). A config outside the kernel's gates is
+      refused here, before the first frame, with a pointer to
+      ``--renderer eager``."""
+    if renderer not in RENDERERS:
+        raise ConfigError(f"unknown renderer {renderer!r}")
+    if renderer == "eager" or (renderer == "auto" and (
+            cfg.dtype != torch.float32 or isinstance(scene, MeshScene))):
+        _check_f64_mesh_on_cpu(scene, cfg)
+        return False
+    try:
+        pathtrace.check_supported(scene, lights, cfg)
+    except ConfigError as e:
+        raise ConfigError(f"{e} (--renderer eager runs the Monte-Carlo "
+                          "estimator)") from None
+    return True
 
 
 def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
@@ -120,6 +154,44 @@ def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
     return frame_step
 
 
+def _frame_generator(seed: int, device) -> torch.Generator:
+    """The eager estimator's random stream: a generator on ``device``."""
+    return torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
+
+
+def build_pathtrace_frame_step(scene, cfg: RenderConfig,
+                               encode: str = "device", seed: int = 0,
+                               renderer: str = "auto"):
+    """(t, cam_offset) -> frame bytes by Monte-Carlo path tracing with the
+    demo's area light (``ttrt.app.build_pathtrace_frame_step``,
+    app.py:56-167). Each frame draws its own stream from ``seed`` and the
+    scene time: the kernel takes the JAX app's frame seed
+    (``kernels.pathtrace.frame_seed``), the eager estimator a generator
+    seeded with it."""
+    device = scene.spheres.radius.device
+    lights = estimator.default_area_lights(cfg, device)
+    use_kernel = _pick_pathtracer(scene, lights, cfg, renderer)
+    template = (ansi_template(cfg.width, cfg.height, device)
+                if encode == "device" else None)
+
+    def frame_step(t: float, cam_offset: torch.Tensor) -> torch.Tensor:
+        frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
+        frame = frame._replace(origin=frame.origin + cam_offset)
+        s = scene.with_camera_frame(frame)
+        fseed = pathtrace.frame_seed(seed, t)
+        if use_kernel:
+            fb, _ = pathtrace.pathtrace_frame(s, lights, cfg, fseed,
+                                              count_rays=False)
+        else:
+            fb = estimator.pathtrace_frame(
+                s, lights, cfg, _frame_generator(fseed, device))
+        if template is None:
+            return encode_rgb_frame(fb)
+        return encode_ansi_frame(fb, template)
+
+    return frame_step
+
+
 def _sleep_until(deadline: float) -> None:
     """Absolute-deadline sleep on the monotonic clock (drift-free pacing)."""
     delay = deadline - time.monotonic()
@@ -141,7 +213,9 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                   device="cuda",
                   stream=None,
                   timers: StageTimers | None = None,
-                  renderer: str = "auto") -> float:
+                  renderer: str = "auto",
+                  pathtrace: bool = False,
+                  seed: int = 0) -> float:
     """The reference's frame loop (TerminalRayTracer.c:1315-1366): render,
     draw, pace to the frame budget, print fps. Returns the last measured
     fps.
@@ -150,11 +224,17 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     host in a small thread pool; camera input takes effect ``pipeline``
     frames later. ``stream`` is the byte sink for the frames (stdout by
     default); ``timers`` collects the per-stage times. ``scene`` defaults
-    to the demo scene; ``renderer`` is ``_pick_renderer``'s."""
+    to the demo scene; ``renderer`` is ``_pick_renderer``'s, or with
+    ``pathtrace`` (Monte-Carlo path tracing from ``seed``)
+    ``_pick_pathtracer``'s."""
     if scene is None:
         scene = make_scene("demo", cfg, skybox_name, device=device)
     device = scene.spheres.radius.device
-    frame_step = build_frame_step(scene, cfg, encode, renderer)
+    if pathtrace:
+        frame_step = build_pathtrace_frame_step(scene, cfg, encode, seed,
+                                                renderer)
+    else:
+        frame_step = build_frame_step(scene, cfg, encode, renderer)
 
     cam_offset = np.zeros(3, np.float64)
     offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
@@ -232,16 +312,27 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
 def render_still(cfg: RenderConfig, skybox_name: str, t: float,
                  out_path: str, *, device="cuda",
                  scene: Scene | MeshScene | None = None,
-                 renderer: str = "auto") -> None:
+                 renderer: str = "auto", pathtrace: bool = False,
+                 seed: int = 0) -> None:
     """Render one frame at time t and write it as PPM (or PNG/JPEG/BMP by
     extension, when PIL is installed). ``scene`` defaults to the demo
-    scene."""
+    scene. With ``pathtrace`` the frame comes from the eager Monte-Carlo
+    estimator seeded with ``seed``, as the JAX app's still does
+    (app.py:826-830)."""
     if scene is None:
         scene = make_scene("demo", cfg, skybox_name, device=device)
     device = scene.spheres.radius.device
-    render_fn = _pick_renderer(scene, cfg, renderer)
     frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-    fb, _ = render_fn(scene.with_camera_frame(frame), cfg, count_rays=False)
+    if pathtrace:
+        _check_f64_mesh_on_cpu(scene, cfg)
+        fb = estimator.pathtrace_frame(
+            scene.with_camera_frame(frame),
+            estimator.default_area_lights(cfg, device), cfg,
+            _frame_generator(seed, device))
+    else:
+        render_fn = _pick_renderer(scene, cfg, renderer)
+        fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
+                          count_rays=False)
     rgb = _to_host(encode_rgb_frame(fb))
     if out_path.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")):
         from PIL import Image
@@ -265,6 +356,8 @@ def main(argv=None) -> int:
                    help="target frame rate")
     p.add_argument("--skybox", default="colors",
                    help="procedural skybox: colors or uv_checker")
+    p.add_argument("--bilinear", action="store_true",
+                   help="bilinear skybox filtering (reference roadmap item)")
     p.add_argument("--specular", action="store_true",
                    help="Blinn-Phong specular highlights (latent in the "
                         "reference: commented-out code)")
@@ -273,6 +366,11 @@ def main(argv=None) -> int:
                    help="reflectivity mixing model: parity = the "
                         "reference's normalized accumulation; subtract = "
                         "its roadmap model (TerminalRayTracer.c:24-28)")
+    p.add_argument("--pathtrace", action="store_true",
+                   help="Monte-Carlo path tracing with a spherical area "
+                        "light: soft shadows + diffuse interreflection")
+    p.add_argument("--seed", type=int, default=0,
+                   help="RNG seed for --pathtrace")
     p.add_argument("--frames", type=int, default=None,
                    help="stop after N frames (default: run until SIGINT/q)")
     p.add_argument("--still", metavar="OUT.ppm", default=None,
@@ -303,7 +401,9 @@ def main(argv=None) -> int:
                         "card's nearest-hit kernel is float32)")
     p.add_argument("--renderer", choices=list(RENDERERS), default="auto",
                    help="render path: a kernel or the eager integrator "
-                        "(auto picks the kernel unless --f64)")
+                        "(with --pathtrace: the eager estimator); auto "
+                        "picks the kernel unless --f64 (or, with "
+                        "--pathtrace, --scene many)")
     args = p.parse_args(argv)
 
     if args.spp < 1 or args.width < 1 or args.height < 1 or args.bounces < 1:
@@ -323,18 +423,27 @@ def main(argv=None) -> int:
             width=args.width, height=args.height, rays_per_pixel=args.spp,
             bounce_limit=args.bounces, frame_rate=args.fps,
             specular=args.specular, energy_model=args.energy_model,
+            skybox_bilinear=args.bilinear,
             dtype=torch.float64 if args.f64 else torch.float32,
         )
+        if args.pathtrace and cfg.energy_model != "parity":
+            # the path tracer splits diffuse and mirror energy by
+            # reflectivity itself; refuse the flag rather than ignore it
+            raise ConfigError(
+                "--energy-model subtract applies to the reflection "
+                "integrator, not --pathtrace")
         scene = make_scene(args.scene, cfg, args.skybox, device=args.device,
                            n_spheres=args.n_spheres)
         if args.still:
             render_still(cfg, args.skybox, args.time, args.still,
-                         scene=scene, renderer=args.renderer)
+                         scene=scene, renderer=args.renderer,
+                         pathtrace=args.pathtrace, seed=args.seed)
             return 0
         run_animation(cfg, args.skybox, args.frames,
                       interactive=not args.no_input, encode=args.encode,
                       scene=scene, stats=args.stats, pipeline=args.pipeline,
-                      renderer=args.renderer)
+                      renderer=args.renderer, pathtrace=args.pathtrace,
+                      seed=args.seed)
         return 0
     except (assets.AssetError, ConfigError) as e:
         # user errors: one line, no traceback (the reference exits with a

@@ -1,8 +1,9 @@
 """Build the CUDA kernels from this package's sources and load them with
 ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface, ``ttrt_torch/_build/libttrt_kernels_<hash>.so``, at
+Every ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and one more links the objects into one shared library with a
+plain C interface, ``ttrt_torch/_build/libttrt_kernels_<hash>.so``, at
 first use. The hash covers every source under ``csrc/`` (headers included)
 and the flags, so an edited source builds anew. The flags keep float
 arithmetic as the JAX oracle rounds it: ``--fmad=false`` (no contraction
@@ -24,9 +25,10 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parent / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 
@@ -52,6 +54,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libttrt_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _spawn(args: list) -> tuple:
+    """Start one compiler process; returns (args, process)."""
+    return args, subprocess.Popen(args, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+
+
+def _run(procs: list) -> str:
+    """Wait for every compiler process of ``_spawn``; raise if one failed.
+    Returns their reports."""
+    report = ""
+    failed = []
+    for args, proc in procs:
+        out, err = proc.communicate()
+        report += out + err
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(args)} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return report
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel library if it is not built yet. Returns its path
     and the compiler's report (registers, spills; empty when the library
@@ -60,21 +83,16 @@ def build() -> tuple[Path, str]:
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builders see whole files
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        report = _run([_spawn([nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                               str(src)])
+                       for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        report += _run([_spawn([nvcc(), *ARCH, "-shared", "-o", lib,
+                                *objs])])
+        os.replace(lib, out)  # atomic: concurrent builders see whole files
+    return out, report
 
 
 @functools.cache
@@ -86,16 +104,24 @@ def load() -> ctypes.CDLL:
     lib.ttrt_render_limits.restype = None
     lib.ttrt_render_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.ttrt_render.restype = ctypes.c_int
-    lib.ttrt_render.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, p, p, p]
+    lib.ttrt_render.argtypes = [p] + [i] * 12 + [p, p, p]
     # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, qbox, order,
     # kb_sph, kb_tri, W, H, N, n_rows, n_samples, bounce_limit, specular,
-    # subtract, sky_kind, sky_dim, scale, out_rgb, out_count, stream
+    # subtract, sky_kind, sky_dim, bilinear, scale, out_rgb, out_count,
+    # stream
     lib.ttrt_mesh_fused.restype = ctypes.c_int
-    lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 12
+    lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 13
                                     + [f, p, p, p])
     # ox oy oz dx dy dz, n, sph, sph_id, tri, tri_id, qbox, kb_sph, kb_tri,
     # mode, out_t, out_id, stream
     lib.ttrt_cluster_nearest.restype = ctypes.c_int
     lib.ttrt_cluster_nearest.argtypes = ([p] * 6 + [i] + [p] * 5
                                          + [i, i, i, p, p, p])
+    lib.ttrt_pathtrace_limits.restype = None
+    lib.ttrt_pathtrace_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    # scene_buf, n_sph, n_al, W, H, N, bounce_limit, sky_kind, sky_dim,
+    # bilinear, seed, out_rgb, out_count, stream
+    lib.ttrt_pathtrace.restype = ctypes.c_int
+    lib.ttrt_pathtrace.argtypes = ([p] + [i] * 9 + [ctypes.c_uint32]
+                                   + [p, p, p])
     return lib

@@ -173,14 +173,15 @@ __device__ void apply_lighting(const Tracer& tr, const Lights& L,
   outb = clamp01(b);
 }
 
-// Nearest-texel procedural sky (render_pallas.py:470-565), bit-identical to
-// the generators' float32 texels.
-__device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
-                          float& r, float& g, float& b) {
+// (face, u, v) of get_skybox_color (TerminalRayTracer.c:700-776): the
+// strict-greater face scan, the folded uv fixups, u and v clamped to
+// [-0.5, 0.5].
+__device__ void sky_face_uv(float dx, float dy, float dz, int& face,
+                            float& u, float& v) {
   normalize3(dx, dy, dz);
   float best = dx * CUBEMAP_AXES[0][0] + dy * CUBEMAP_AXES[0][1] +
                dz * CUBEMAP_AXES[0][2];
-  int face = 0;
+  face = 0;
   for (int f = 1; f < 6; ++f) {
     float d = dx * CUBEMAP_AXES[f][0] + dy * CUBEMAP_AXES[f][1] +
               dz * CUBEMAP_AXES[f][2];
@@ -198,14 +199,16 @@ __device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
   float oz = (sz - t2 * ax[2]) * 0.5f;
   const float* ua = U_AXIS[face];
   const float* va = V_AXIS[face];
-  float u = ox * ua[0] + oy * ua[1] + oz * ua[2];
-  float v = ox * va[0] + oy * va[1] + oz * va[2];
+  u = ox * ua[0] + oy * ua[1] + oz * ua[2];
+  v = ox * va[0] + oy * va[1] + oz * va[2];
   u = fminf(fmaxf(u, -0.5f), 0.5f);
   v = fminf(fmaxf(v, -0.5f), 0.5f);
-  float fdim = (float)dim;
-  int ui = min((int)((u + 0.5f) * fdim), dim - 1);
-  int vi = min((int)((v + 0.5f) * fdim), dim - 1);
+}
 
+// Texel (face, row vi, column ui) of a procedural cubemap
+// (render_pallas.py:518), bit-identical to the generators' float32 texels.
+__device__ void procedural_texel(int face, int ui, int vi, int dim, int kind,
+                                 float& r, float& g, float& b) {
   const float* hue = FACE_COLORS[face];
   if (kind == 0) {  // 'colors': texels are exactly 0 or 255
     r = hue[0]; g = hue[1]; b = hue[2];
@@ -213,6 +216,7 @@ __device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
   }
   // 'uv_checker'. jnp.mod is floor-mod; fmodf truncates, and the two
   // agree here only because the dividend is >= 0.
+  const float fdim = (float)dim;
   float u01 = (float)ui / fdim;
   float v01 = (float)vi / fdim;
   float checker = fmodf(floorf(u01 * 8.0f) + floorf(v01 * 8.0f), 2.0f);
@@ -224,6 +228,44 @@ __device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
   r = (float)(int)(rr * 255.0f) / 255.0f;
   g = (float)(int)(gg * 255.0f) / 255.0f;
   b = (float)(int)(bb * 255.0f) / 255.0f;
+}
+
+// The procedural sky along d (render_pallas.py:559, :568): the nearest
+// texel by the reference's int truncation, or (bilinear) the pattern at the
+// four texel centers around (u, v), clamped within the face and blended in
+// sample_skybox(bilinear=True)'s lerp order.
+__device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
+                          bool bilinear, float& r, float& g, float& b) {
+  int face;
+  float u, v;
+  sky_face_uv(dx, dy, dz, face, u, v);
+  const float fdim = (float)dim;
+  if (!bilinear) {
+    int ui = min((int)((u + 0.5f) * fdim), dim - 1);
+    int vi = min((int)((v + 0.5f) * fdim), dim - 1);
+    procedural_texel(face, ui, vi, dim, kind, r, g, b);
+    return;
+  }
+  const float fu = (u + 0.5f) * fdim - 0.5f;
+  const float fv = (v + 0.5f) * fdim - 0.5f;
+  const int u0 = min(max((int)floorf(fu), 0), dim - 1);
+  const int v0 = min(max((int)floorf(fv), 0), dim - 1);
+  const int u1 = min(u0 + 1, dim - 1);
+  const int v1 = min(v0 + 1, dim - 1);
+  const float wu = clamp01(fu - (float)u0);
+  const float wv = clamp01(fv - (float)v0);
+  float c00[3], c01[3], c10[3], c11[3];
+  procedural_texel(face, u0, v0, dim, kind, c00[0], c00[1], c00[2]);
+  procedural_texel(face, u1, v0, dim, kind, c01[0], c01[1], c01[2]);
+  procedural_texel(face, u0, v1, dim, kind, c10[0], c10[1], c10[2]);
+  procedural_texel(face, u1, v1, dim, kind, c11[0], c11[1], c11[2]);
+  float out[3];
+  for (int ch = 0; ch < 3; ++ch) {
+    const float top = c00[ch] * (1.0f - wu) + c01[ch] * wu;
+    const float bot = c10[ch] * (1.0f - wu) + c11[ch] * wu;
+    out[ch] = top * (1.0f - wv) + bot * wv;
+  }
+  r = out[0]; g = out[1]; b = out[2];
 }
 
 // Triangle wave (TerminalRayTracer.c:225-228). jnp.mod is floor-mod; fmodf
@@ -240,14 +282,14 @@ __device__ __forceinline__ float tri(float t) {
 // (a dead ray changes no accumulator, so the exit is exact), the sky fold at
 // the final (frozen-on-death) direction and the contribution-total
 // normalization. Returns the in-order sum of the samples' colors and the
-// trace count (bounces + hits * n_lights).
+// trace count (bounces + hits * n_lights). `bilinear` filters the sky.
 template <class Tracer>
 __device__ void render_pixel(const Tracer& tr, const Lights& L,
                              const float* cam, int col_i, int row_i, int W,
                              int H, int N, int n_samples, int bounce_limit,
                              bool specular, bool subtract, int sky_kind,
-                             int sky_dim, float& acc_r, float& acc_g,
-                             float& acc_b, int& traces) {
+                             int sky_dim, bool bilinear, float& acc_r,
+                             float& acc_g, float& acc_b, int& traces) {
   const float fW = (float)W, fH = (float)H, fN = (float)N;
   const float col = (float)col_i;
   const float row = (float)row_i + cam[15];
@@ -303,7 +345,7 @@ __device__ void render_pixel(const Tracer& tr, const Lights& L,
     }
     // procedural sky fold at the final (frozen-on-death) direction
     float skr, skg, skb;
-    sky_color(dx, dy, dz, sky_dim, sky_kind, skr, skg, skb);
+    sky_color(dx, dy, dz, sky_dim, sky_kind, bilinear, skr, skg, skb);
     pr = pr + sky_w * skr;
     pg = pg + sky_w * skg;
     pb = pb + sky_w * skb;
@@ -319,5 +361,95 @@ __device__ void render_pixel(const Tracer& tr, const Lights& L,
     acc_b = acc_b + pb;
   }
 }
+
+constexpr int SPHERE_FLOATS = 9;
+constexpr int PLANE_FLOATS = 16;
+constexpr int MAX_SPHERES = 64;
+// The demo scene's tracer for render_pixel (render.cu) and the path
+// tracer (pathtrace.cu): a linear scan of the spheres, then the ground
+// plane, all in shared memory.
+struct DemoTracer {
+  const float* sph;
+  const float* plane;
+  int n_sph;
+
+  // Nearest-hit trace (render_pallas.py:194): sqrt-free sphere predicate
+  // disc >= 0 && b < 0 && c > 0, t compare, first object wins ties, winner
+  // point and normal computed once.
+  __device__ Hit trace(float ox, float oy, float oz, float dx, float dy,
+                       float dz) const {
+    float a = dot3(dx, dy, dz, dx, dy, dz);
+    float inv2a = 0.5f / a;
+    float best_t = FLT_MAX;
+    int best = -1;
+    for (int i = 0; i < n_sph; ++i) {
+      const float* q = sph + SPHERE_FLOATS * i;
+      float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+      float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
+      float c = fmaf(-q[3], q[3], dot3(ocx, ocy, ocz, ocx, ocy, ocz));
+      float disc = fmaf(b, b, -(4.0f * a * c));
+      if (disc >= 0.0f && b < 0.0f && c > 0.0f) {
+        float t0 = (-b - sqrtf(fmaxf(disc, 0.0f))) * inv2a;
+        if (t0 < best_t) {
+          best_t = t0;
+          best = i;
+        }
+      }
+    }
+    const float* p = plane;
+    float denom = dot3(dx, dy, dz, p[3], p[4], p[5]);
+    float safe = denom == 0.0f ? 1.0f : denom;
+    float tp = dot3(p[0] - ox, p[1] - oy, p[2] - oz, p[3], p[4], p[5]) / safe;
+    bool take_p = fabsf(denom) > PLANE_DENOM_EPS_F && tp > PLANE_T_EPS_F &&
+                  tp < best_t;
+    if (take_p) best_t = tp;
+    if (!take_p && best < 0) return miss_hit(ox, oy, oz, dx, dy, dz);
+
+    Hit h;
+    if (take_p) {
+      // checker parity (TerminalRayTracer.c:850): float -> int truncation
+      float px = fmaf(best_t, dx, ox), pz = fmaf(best_t, dz, oz);
+      int odd = ((int)(floorf(px) + floorf(pz))) & 1;
+      const float* m = odd ? p + 10 : p + 6;
+      h.cr = m[0]; h.cg = m[1]; h.cb = m[2]; h.refl = m[3];
+      h.spec = odd ? p[15] : p[14];
+      finish_hit(h, best_t, ox, oy, oz, dx, dy, dz, nullptr, p[3], p[4],
+                 p[5]);
+    } else {
+      const float* q = sph + SPHERE_FLOATS * best;
+      h.cr = q[4]; h.cg = q[5]; h.cb = q[6]; h.refl = q[7]; h.spec = q[8];
+      finish_hit(h, best_t, ox, oy, oz, dx, dy, dz, q, 0.0f, 0.0f, 0.0f);
+    }
+    return h;
+  }
+
+  // Any-hit shadow trace along a UNIT direction (the quadratic's a is 1);
+  // has_tmax: point lights only count blockers before the light
+  // (TerminalRayTracer.c:937-942).
+  __device__ bool blocked(float px, float py, float pz, float ldx, float ldy,
+                          float ldz, bool has_tmax, float tmax) const {
+    for (int i = 0; i < n_sph; ++i) {
+      const float* q = sph + SPHERE_FLOATS * i;
+      float ocx = px - q[0], ocy = py - q[1], ocz = pz - q[2];
+      float c = fmaf(-q[3], q[3], dot3(ocx, ocy, ocz, ocx, ocy, ocz));
+      float b = 2.0f * dot3(ocx, ocy, ocz, ldx, ldy, ldz);
+      float disc = fmaf(b, b, -(4.0f * c));
+      bool hit = disc >= 0.0f && b < 0.0f && c > 0.0f;
+      if (has_tmax) {
+        // t0 < tmax  <=>  sqrt(disc) > -b - 2*tmax
+        float rhs = -b - 2.0f * tmax;
+        hit = hit && (rhs < 0.0f || disc > rhs * rhs);
+      }
+      if (hit) return true;
+    }
+    const float* p = plane;
+    float denom = dot3(ldx, ldy, ldz, p[3], p[4], p[5]);
+    float safe = denom == 0.0f ? 1.0f : denom;
+    float tp = dot3(p[0] - px, p[1] - py, p[2] - pz, p[3], p[4], p[5]) / safe;
+    bool phit = fabsf(denom) > PLANE_DENOM_EPS_F && tp > PLANE_T_EPS_F;
+    if (has_tmax) phit = phit && tp < tmax;
+    return phit;
+  }
+};
 
 }  // namespace

@@ -321,7 +321,8 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
                   const float* __restrict__ pl_in, int n_pl, MeshGeom g,
                   int W, int H, int N, int n_rows, int n_samples,
                   int bounce_limit, int specular, int subtract, int sky_kind,
-                  int sky_dim, float scale, float* __restrict__ out_rgb,
+                  int sky_dim, int bilinear, float scale,
+                  float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
   __shared__ float sbuf[LIGHT_FLOATS];
   const int tid = threadIdx.y * TILE_X + threadIdx.x;
@@ -348,8 +349,8 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
   float acc_r, acc_g, acc_b;
   int traces;
   render_pixel(tr, L, sbuf, col, row, W, H, N, n_samples, bounce_limit,
-               specular != 0, subtract != 0, sky_kind, sky_dim, acc_r, acc_g,
-               acc_b, traces);
+               specular != 0, subtract != 0, sky_kind, sky_dim, bilinear != 0,
+               acc_r, acc_g, acc_b, traces);
   const int n_pixels = W * n_rows;
   const int pix = row * W + col;
   out_rgb[pix] = acc_r * scale;
@@ -414,8 +415,9 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
                     const int* tri_id, const float* qbox, const int* order,
                     int kb_sph, int kb_tri, int W, int H, int N, int n_rows,
                     int n_samples, int bounce_limit, int specular,
-                    int subtract, int sky_kind, int sky_dim, float scale,
-                    float* out_rgb, int* out_count, void* stream) {
+                    int subtract, int sky_kind, int sky_dim, int bilinear,
+                    float scale, float* out_rgb, int* out_count,
+                    void* stream) {
   if (n_dl < 0 || n_dl > MAX_DLIGHTS || n_pl < 0 || n_pl > MAX_PLIGHTS ||
       W < 1 || H < 1 || N < 1 || n_rows < 1 || n_samples < 1 ||
       kb_sph < 0 || kb_tri < 0 || sky_dim < 1 ||
@@ -428,7 +430,8 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
   const dim3 grid((W + TILE_X - 1) / TILE_X, (n_rows + TILE_Y - 1) / TILE_Y);
   mesh_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, bounce_limit,
-      specular, subtract, sky_kind, sky_dim, scale, out_rgb, out_count);
+      specular, subtract, sky_kind, sky_dim, bilinear, scale, out_rgb,
+      out_count);
   return (int)cudaGetLastError();
 }
 

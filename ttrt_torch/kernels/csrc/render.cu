@@ -1,10 +1,10 @@
 // Demo-scene render kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ttrt/kernels/render_pallas.py::_render_kernel
-// (:894, launched at :1154), procedural-sky variant, with its flags
-// `specular` and `energy_model="subtract"`. Its plain PyTorch version is
-// ttrt_torch/kernels/render.py::render_frame_plain, which mirrors this math
-// op for op.
+// (:894, launched at :1154), procedural-sky variant (nearest or bilinear),
+// with its flags `specular` and `energy_model="subtract"`. Its plain
+// PyTorch version is ttrt_torch/kernels/render.py::render_frame_plain,
+// which mirrors this math op for op.
 //
 // Design: one thread per pixel. Each thread loops over the AA samples
 // k = 0..N-1 in order and, per sample, over the bounces with a real loop
@@ -44,104 +44,15 @@
 
 namespace {
 
-constexpr int SPHERE_FLOATS = 9;
-constexpr int PLANE_FLOATS = 16;
-constexpr int MAX_SPHERES = 64;
 constexpr int MAX_SCENE_FLOATS =
     CAM_FLOATS + SPHERE_FLOATS * MAX_SPHERES + PLANE_FLOATS +
     DLIGHT_FLOATS * MAX_DLIGHTS + PLIGHT_FLOATS * MAX_PLIGHTS;
 constexpr int BLOCK = 128;
 
-// The demo scene's tracer for common.cuh's render_pixel: a linear scan of
-// the spheres, then the ground plane, all in shared memory.
-struct DemoTracer {
-  const float* sph;
-  const float* plane;
-  int n_sph;
-
-  // Nearest-hit trace (render_pallas.py:194): sqrt-free sphere predicate
-  // disc >= 0 && b < 0 && c > 0, t compare, first object wins ties, winner
-  // point and normal computed once.
-  __device__ Hit trace(float ox, float oy, float oz, float dx, float dy,
-                       float dz) const {
-    float a = dot3(dx, dy, dz, dx, dy, dz);
-    float inv2a = 0.5f / a;
-    float best_t = FLT_MAX;
-    int best = -1;
-    for (int i = 0; i < n_sph; ++i) {
-      const float* q = sph + SPHERE_FLOATS * i;
-      float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
-      float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
-      float c = fmaf(-q[3], q[3], dot3(ocx, ocy, ocz, ocx, ocy, ocz));
-      float disc = fmaf(b, b, -(4.0f * a * c));
-      if (disc >= 0.0f && b < 0.0f && c > 0.0f) {
-        float t0 = (-b - sqrtf(fmaxf(disc, 0.0f))) * inv2a;
-        if (t0 < best_t) {
-          best_t = t0;
-          best = i;
-        }
-      }
-    }
-    const float* p = plane;
-    float denom = dot3(dx, dy, dz, p[3], p[4], p[5]);
-    float safe = denom == 0.0f ? 1.0f : denom;
-    float tp = dot3(p[0] - ox, p[1] - oy, p[2] - oz, p[3], p[4], p[5]) / safe;
-    bool take_p = fabsf(denom) > PLANE_DENOM_EPS_F && tp > PLANE_T_EPS_F &&
-                  tp < best_t;
-    if (take_p) best_t = tp;
-    if (!take_p && best < 0) return miss_hit(ox, oy, oz, dx, dy, dz);
-
-    Hit h;
-    if (take_p) {
-      // checker parity (TerminalRayTracer.c:850): float -> int truncation
-      float px = fmaf(best_t, dx, ox), pz = fmaf(best_t, dz, oz);
-      int odd = ((int)(floorf(px) + floorf(pz))) & 1;
-      const float* m = odd ? p + 10 : p + 6;
-      h.cr = m[0]; h.cg = m[1]; h.cb = m[2]; h.refl = m[3];
-      h.spec = odd ? p[15] : p[14];
-      finish_hit(h, best_t, ox, oy, oz, dx, dy, dz, nullptr, p[3], p[4],
-                 p[5]);
-    } else {
-      const float* q = sph + SPHERE_FLOATS * best;
-      h.cr = q[4]; h.cg = q[5]; h.cb = q[6]; h.refl = q[7]; h.spec = q[8];
-      finish_hit(h, best_t, ox, oy, oz, dx, dy, dz, q, 0.0f, 0.0f, 0.0f);
-    }
-    return h;
-  }
-
-  // Any-hit shadow trace along a UNIT direction (the quadratic's a is 1);
-  // has_tmax: point lights only count blockers before the light
-  // (TerminalRayTracer.c:937-942).
-  __device__ bool blocked(float px, float py, float pz, float ldx, float ldy,
-                          float ldz, bool has_tmax, float tmax) const {
-    for (int i = 0; i < n_sph; ++i) {
-      const float* q = sph + SPHERE_FLOATS * i;
-      float ocx = px - q[0], ocy = py - q[1], ocz = pz - q[2];
-      float c = fmaf(-q[3], q[3], dot3(ocx, ocy, ocz, ocx, ocy, ocz));
-      float b = 2.0f * dot3(ocx, ocy, ocz, ldx, ldy, ldz);
-      float disc = fmaf(b, b, -(4.0f * c));
-      bool hit = disc >= 0.0f && b < 0.0f && c > 0.0f;
-      if (has_tmax) {
-        // t0 < tmax  <=>  sqrt(disc) > -b - 2*tmax
-        float rhs = -b - 2.0f * tmax;
-        hit = hit && (rhs < 0.0f || disc > rhs * rhs);
-      }
-      if (hit) return true;
-    }
-    const float* p = plane;
-    float denom = dot3(ldx, ldy, ldz, p[3], p[4], p[5]);
-    float safe = denom == 0.0f ? 1.0f : denom;
-    float tp = dot3(p[0] - px, p[1] - py, p[2] - pz, p[3], p[4], p[5]) / safe;
-    bool phit = fabsf(denom) > PLANE_DENOM_EPS_F && tp > PLANE_T_EPS_F;
-    if (has_tmax) phit = phit && tp < tmax;
-    return phit;
-  }
-};
-
 __global__ void __launch_bounds__(BLOCK)
 render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
               int n_pl, int W, int H, int N, int bounce_limit, int specular,
-              int subtract, int sky_kind, int sky_dim,
+              int subtract, int sky_kind, int sky_dim, int bilinear,
               float* __restrict__ out_rgb, int* __restrict__ out_count) {
   __shared__ float sbuf[MAX_SCENE_FLOATS];
   const int n_floats = CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS +
@@ -167,8 +78,8 @@ render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
   float acc_r, acc_g, acc_b;
   int traces;
   render_pixel(tr, L, sbuf, pix % W, pix / W, W, H, N, N, bounce_limit,
-               specular != 0, subtract != 0, sky_kind, sky_dim, acc_r, acc_g,
-               acc_b, traces);
+               specular != 0, subtract != 0, sky_kind, sky_dim, bilinear != 0,
+               acc_r, acc_g, acc_b, traces);
   const float inv_n = (float)(1.0 / (double)N);
   out_rgb[pix] = acc_r * inv_n;
   out_rgb[n_pixels + pix] = acc_g * inv_n;
@@ -192,8 +103,8 @@ void ttrt_render_limits(int* out) {
 // caller allocates `out_rgb` (3*H*W floats) and `out_count` (H*W ints).
 int ttrt_render(const float* scene_buf, int n_sph, int n_dl, int n_pl, int W,
                 int H, int N, int bounce_limit, int specular, int subtract,
-                int sky_kind, int sky_dim, float* out_rgb, int* out_count,
-                void* stream) {
+                int sky_kind, int sky_dim, int bilinear, float* out_rgb,
+                int* out_count, void* stream) {
   if (n_sph < 0 || n_sph > MAX_SPHERES || n_dl < 0 || n_dl > MAX_DLIGHTS ||
       n_pl < 0 || n_pl > MAX_PLIGHTS || W < 1 || H < 1 || N < 1 ||
       sky_dim < 1 || (sky_kind != 0 && sky_kind != 1))
@@ -202,7 +113,7 @@ int ttrt_render(const float* scene_buf, int n_sph, int n_dl, int n_pl, int W,
   const int grid = (n_pixels + BLOCK - 1) / BLOCK;
   render_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular, subtract,
-      sky_kind, sky_dim, out_rgb, out_count);
+      sky_kind, sky_dim, bilinear, out_rgb, out_count);
   return (int)cudaGetLastError();
 }
 

@@ -32,7 +32,7 @@ from ttrt_torch.kernels.render import (SKY_KINDS, _bounce_chain, _F32_EPSILON,
                                        _finish_frame, _fma, _gen_primary_rays,
                                        _normalize3, _TraceOut, _tuples,
                                        DLIGHT_FLOATS, PLIGHT_FLOATS,
-                                       pack_camera, pack_dlights,
+                                       check_sky, pack_camera, pack_dlights,
                                        pack_plights)
 from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.dense import (_tri_t, chunks, nearest_arrays,
@@ -47,8 +47,8 @@ MAX_PLIGHTS = 8
 def check_supported(scene, cfg: RenderConfig) -> None:
     """The gates of ``render_band_mesh_fused`` (mesh_fused.py:1431-1443)
     that this port keeps: float32, bounce_limit <= 16 (the per-ray trace
-    counts pack 5-bit fields), a cluster pack, a procedural sky with
-    nearest texels."""
+    counts pack 5-bit fields), a cluster pack, a procedural sky (nearest
+    or bilinear)."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the fused mesh kernel is float32-only")
     if cfg.bounce_limit > 16:
@@ -56,12 +56,7 @@ def check_supported(scene, cfg: RenderConfig) -> None:
     if getattr(scene, "clusters", None) is None:
         raise ConfigError("the fused mesh kernel needs a MeshScene with a "
                           "cluster pack")
-    if cfg.skybox_bilinear:
-        raise ConfigError("bilinear skybox filtering is not yet ported")
-    if scene.skybox.procedural not in SKY_KINDS:
-        raise ConfigError(
-            "image cubemaps are not yet ported; use a procedural sky "
-            f"({', '.join(SKY_KINDS)})")
+    check_sky(scene)
 
 
 def order_subclusters(pack, origin: torch.Tensor) -> torch.Tensor:
@@ -240,7 +235,8 @@ def render_band_mesh_fused_cuda(
         n_samples, cfg.bounce_limit, int(cfg.specular),
         int(cfg.energy_model == "subtract"),
         SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        scale, out.data_ptr(), counts.data_ptr(), stream)
+        int(cfg.skybox_bilinear), scale, out.data_ptr(), counts.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"fused mesh kernel launch failed: CUDA error {rc}")
     render_band_mesh_fused_cuda.launches += 1

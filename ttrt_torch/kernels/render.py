@@ -144,19 +144,23 @@ def pack_scene(scene: Scene, dtype, row_offset: float = 0.0,
     )
 
 
-def check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """The gates of ``render_frame_pallas`` (render_pallas.py:1292-1325)
-    that this slice keeps: float32, a procedural sky, nearest texels,
-    bounce_limit <= 16 (the per-ray trace counts pack 5-bit fields)."""
-    if cfg.dtype != torch.float32:
-        raise ConfigError("the render kernel is float32-only")
-    if cfg.skybox_bilinear:
-        raise ConfigError("bilinear skybox filtering is not yet ported")
+def check_sky(scene) -> None:
+    """The kernels evaluate a procedural sky in place (nearest or
+    bilinear); image cubemaps are not ported to them yet."""
     if scene.skybox.procedural not in SKY_KINDS:
         raise ConfigError(
             "image cubemaps are not yet ported; use a procedural sky "
             f"({', '.join(SKY_KINDS)})"
         )
+
+
+def check_supported(scene: Scene, cfg: RenderConfig) -> None:
+    """The gates of ``render_frame_pallas`` (render_pallas.py:1292-1325)
+    that this port keeps: float32, a procedural sky (nearest or bilinear),
+    bounce_limit <= 16 (the per-ray trace counts pack 5-bit fields)."""
+    if cfg.dtype != torch.float32:
+        raise ConfigError("the render kernel is float32-only")
+    check_sky(scene)
     if cfg.bounce_limit > 16:
         raise ConfigError("the render kernel supports bounce_limit <= 16")
 
@@ -391,11 +395,10 @@ def _select(face, column):
     return out
 
 
-def _sky_face_uv(dx, dy, dz, dim: int):
-    """(face, ui, vi) nearest texel of get_skybox_color
-    (TerminalRayTracer.c:700-788): strict-greater face scan, the per-face
-    uv fixups folded into U_AXIS/V_AXIS, clamp to [-0.5, 0.5], and the
-    reference's int truncation clamped to dim-1."""
+def _sky_face_uv_cont(dx, dy, dz):
+    """(face, u, v) of get_skybox_color (TerminalRayTracer.c:700-776):
+    strict-greater face scan, the per-face uv fixups folded into
+    U_AXIS/V_AXIS, u and v clamped to [-0.5, 0.5]."""
     ddx, ddy, ddz = _normalize3(dx, dy, dz)
     best, face = None, None
     for f in range(6):
@@ -420,8 +423,13 @@ def _sky_face_uv(dx, dy, dz, dim: int):
          + oz * _select(face, U_AXIS[:, 2]))
     v = (ox * _select(face, V_AXIS[:, 0]) + oy * _select(face, V_AXIS[:, 1])
          + oz * _select(face, V_AXIS[:, 2]))
-    u = torch.clamp(u, -0.5, 0.5)
-    v = torch.clamp(v, -0.5, 0.5)
+    return face, torch.clamp(u, -0.5, 0.5), torch.clamp(v, -0.5, 0.5)
+
+
+def _sky_face_uv(dx, dy, dz, dim: int):
+    """(face, ui, vi) nearest texel: the reference's int truncation
+    (TerminalRayTracer.c:778-788) clamped to dim-1."""
+    face, u, v = _sky_face_uv_cont(dx, dy, dz)
     ui = torch.clamp_max(((u + 0.5) * dim).to(torch.int32), dim - 1)
     vi = torch.clamp_max(((v + 0.5) * dim).to(torch.int32), dim - 1)
     return face, ui, vi
@@ -461,6 +469,37 @@ def _procedural_texel(face, ui, vi, dim: int, kind: str):
 def _sky_color_procedural(dx, dy, dz, dim: int, kind: str):
     face, ui, vi = _sky_face_uv(dx, dy, dz, dim)
     return _procedural_texel(face, ui, vi, dim, kind)
+
+
+def _sky_color_procedural_bilinear(dx, dy, dz, dim: int, kind: str):
+    """The 4-tap bilinear procedural sky (render_pallas.py:568): the
+    pattern at the four texel centers around (u, v), clamped within the
+    face, blended in ``sample_skybox(bilinear=True)``'s lerp order."""
+    face, u, v = _sky_face_uv_cont(dx, dy, dz)
+    fu = (u + 0.5) * dim - 0.5
+    fv = (v + 0.5) * dim - 0.5
+    u0 = torch.clamp(torch.floor(fu).to(torch.int32), 0, dim - 1)
+    v0 = torch.clamp(torch.floor(fv).to(torch.int32), 0, dim - 1)
+    u1 = torch.clamp_max(u0 + 1, dim - 1)
+    v1 = torch.clamp_max(v0 + 1, dim - 1)
+    wu = torch.clamp(fu - u0.to(torch.float32), 0.0, 1.0)
+    wv = torch.clamp(fv - v0.to(torch.float32), 0.0, 1.0)
+    c00 = _procedural_texel(face, u0, v0, dim, kind)
+    c01 = _procedural_texel(face, u1, v0, dim, kind)
+    c10 = _procedural_texel(face, u0, v1, dim, kind)
+    c11 = _procedural_texel(face, u1, v1, dim, kind)
+    out = []
+    for ch in range(3):
+        top = c00[ch] * (1.0 - wu) + c01[ch] * wu
+        bot = c10[ch] * (1.0 - wu) + c11[ch] * wu
+        out.append(top * (1.0 - wv) + bot * wv)
+    return tuple(out)
+
+
+def sky_color(dx, dy, dz, skybox, bilinear: bool):
+    """The procedural sky along (dx, dy, dz), nearest or bilinear."""
+    fn = _sky_color_procedural_bilinear if bilinear else _sky_color_procedural
+    return fn(dx, dy, dz, skybox.dim, skybox.procedural)
 
 
 def _bounce_chain(ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals,
@@ -582,12 +621,12 @@ def _tuples(flat: torch.Tensor, width: int) -> list:
 def _finish_frame(pr, pg, pb, total, sky_w, count, dx, dy, dz, scene,
                   cfg: RenderConfig, n_rows: int, n_samples: int,
                   scale: float, n_lights: int):
-    """The end of a frame after the bounce chain: the procedural sky at the
-    final direction, the contribution-total normalization, the in-order
-    sum of each pixel's samples times ``scale``, and the trace count
-    (bounces + hits x n_lights). Returns ((n_rows, W) Vec3, count)."""
-    skr, skg, skb = _sky_color_procedural(dx, dy, dz, scene.skybox.dim,
-                                          scene.skybox.procedural)
+    """The end of a frame after the bounce chain: the procedural sky
+    (nearest or bilinear) at the final direction, the contribution-total
+    normalization, the in-order sum of each pixel's samples times
+    ``scale``, and the trace count (bounces + hits x n_lights). Returns
+    ((n_rows, W) Vec3, count)."""
+    skr, skg, skb = sky_color(dx, dy, dz, scene.skybox, cfg.skybox_bilinear)
     pr = pr + sky_w * skr
     pg = pg + sky_w * skg
     pb = pb + sky_w * skb
@@ -696,7 +735,7 @@ def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
         buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, cfg.bounce_limit,
         int(cfg.specular), int(cfg.energy_model == "subtract"),
         SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        out.data_ptr(), counts.data_ptr(), stream,
+        int(cfg.skybox_bilinear), out.data_ptr(), counts.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
