@@ -75,6 +75,34 @@ The Monte-Carlo path tracer (--pathtrace), through the path-tracing kernel
       the kernel's frame, and one frame of --pathtrace --scene many (the
       estimator, tracing through cluster_nearest).
 
+Image cubemaps ('milky_way', the 256-texel starfield; the texels loaded in
+the kernels), the sky weights and the pixel-rate frame (csrc/render.cu,
+csrc/mesh.cu):
+
+  S1. the demo kernel vs its plain version at the full config, milky_way
+      at t = 0.0, 1.5, 7.3, bilinear at 1.5, and a 1024-texel starfield
+      (25 MB of texels, past JAX's dim <= 591 cap) at 1.5. Bar: bit for
+      bit (max |d| 0, no differing pixel, equal traces).
+  S2. the fused kernel vs its plain version, bit for bit: milky_way at
+      480x280 (phase D's geometry, whose traces it must repeat) and
+      bilinear at 240x140.
+  S3. both kernels vs the JAX oracle stored in
+      tests/data/torch_port_golden_sky.npz (demo and many-object frames,
+      nearest and bilinear), with phase 3's and phase C's bars.
+  S4. timing under milky_way: the demo wrapper and kernel, nearest and
+      bilinear, the fused wrapper and kernel; then the main paths, each
+      with the launch counts set to 0 before and read after: 60 frames of
+      the demo, 30 of --scene many, one of --pathtrace (the eager
+      estimator: no kernel or plain-version launch), and FACE_FRAMES each
+      of the demo and --scene many with --skybox <dir> --bilinear (six
+      seeded FACE_DIM-texel faces written as PPM). The sky-weight and
+      pixel-rate kernels have no caller on these paths: their counts are
+      read too and must stay 0, and the kernels line reports them so.
+  S5. the sky-weight kernel (sky_weights) vs its plain version, bit for
+      bit; its time and bound.
+  S6. the pixel-rate kernel (render_frame_pixel_rate) vs its plain version
+      and vs render_frame_cuda, bit for bit; its time and bound.
+
 Prints, before the last line, one JSON line of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
@@ -90,6 +118,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -100,9 +129,17 @@ MESH_GOLDEN = os.path.join(REPO, "tests", "data",
                            "torch_port_golden_mesh.npz")
 PT_GOLDEN = os.path.join(REPO, "tests", "data",
                          "torch_port_golden_pathtrace.npz")
+SKY_GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden_sky.npz")
 KNIFE_CAP = 0.20  # K1 | K2 share of pixels (tests/test_pallas_kernel.py)
 # the many-object scene has far more silhouettes (tests/test_mesh_fused.py)
 MESH_KNIFE_CAP = 0.40
+# the image-sky golden (the starfield, nearest and bilinear; masks united
+# with the 'colors' sky's, tests/make_torch_golden.py): K1 | K2 cover
+# 12.7-19.4% of the demo frames' pixels and 27.7-36.1% of the many-object
+# frames' (JAX's own textured-bilinear case runs at 0.30,
+# tests/test_pallas_kernel.py)
+SKY_KNIFE_CAP = 0.25
+SKY_MESH_KNIFE_CAP = MESH_KNIFE_CAP
 # Flipped pixels, all inside the knife classes, allowed against the
 # golden: 3% on the demo scene (tests/knife_util.py); 10% on the
 # many-object golden, whose 10 bounces through 2240 small spheres carry a
@@ -116,6 +153,9 @@ MESH_FRAMES = 30
 EAGER_FRAMES = 2
 N_SPHERES = 10_000
 PT_FRAMES = 30
+# phase S4's --skybox <dir> main paths: frames each, and the faces' dim
+FACE_FRAMES = 5
+FACE_DIM = 96
 # PATHTRACE_BAR: the path-tracing kernel (or its plain version) against
 # JAX's kernel on the same scene and frame seed. Both draw the same random
 # stream, so most pixels agree to float32 rounding; a ray whose direction
@@ -234,27 +274,61 @@ def check_golden(render, device, path: str = GOLDEN,
     many-object scene's ``MESH_GOLDEN``) with ``render`` (a
     ``render_frame``-like function) on ``device`` and hold it to the
     golden's bar. Returns one stats dict per frame."""
-    import torch
-
-    from ttrt_torch.config import RenderConfig
-    from ttrt_torch.scene import scene_from_numpy
-
     g = np.load(path)
-    width, height, spp, bounces = (int(v) for v in g["config"][:4])
-    cfg = RenderConfig(width=width, height=height, rays_per_pixel=spp,
-                       bounce_limit=bounces)
+    cfg = _golden_cfg(g)
     out = []
     for i, t in enumerate(g["times"]):
-        prefix = f"scene{i}."
-        leaves = {k[len(prefix):]: g[k] for k in g.files
-                  if k.startswith(prefix)}
-        scene = scene_from_numpy(leaves, "colors", device=device,
-                                 dtype=torch.float32)
-        fb, rays = render(scene, cfg)
+        fb, rays = render(_golden_scene(g, i, device, "colors"), cfg)
         stats = golden_bar(g[f"fb{i}"], fb.to_array().cpu().numpy(),
                            g[f"k1_{i}"], g[f"k2_{i}"], int(g[f"rays{i}"]),
                            int(rays), knife_cap, flip_cap)
         out.append({"t": float(t), **stats})
+    return out
+
+
+def _golden_cfg(g, **flags):
+    """The RenderConfig of a golden file's ``config`` (width, height, spp,
+    bounces, ...)."""
+    from ttrt_torch.config import RenderConfig
+
+    width, height, spp, bounces = (int(v) for v in g["config"][:4])
+    return RenderConfig(width=width, height=height, rays_per_pixel=spp,
+                        bounce_limit=bounces, **flags)
+
+
+def _golden_scene(g, i: int, device, procedural):
+    """Frame ``i``'s scene of a golden file, on ``device``."""
+    import torch
+
+    from ttrt_torch.scene import scene_from_numpy
+
+    prefix = f"scene{i}."
+    leaves = {k[len(prefix):]: g[k] for k in g.files if k.startswith(prefix)}
+    return scene_from_numpy(leaves, procedural, device=device,
+                            dtype=torch.float32)
+
+
+def check_sky_golden(render, render_mesh, device) -> list:
+    """Render every frame of the image-sky golden (``SKY_GOLDEN``: the
+    demo scene and the many-object scene under the untagged starfield,
+    nearest and bilinear) on ``device``, the demo frames with ``render``
+    and the many-object ones with ``render_mesh``, and hold each to phase
+    3's bar (phase C's for the many-object frames). Returns one stats dict
+    per frame."""
+    g = np.load(SKY_GOLDEN)
+    out = []
+    for i, t in enumerate(g["times"]):
+        mesh, bilinear = bool(g["mesh"][i]), bool(g["bilinear"][i])
+        fb, rays = (render_mesh if mesh else render)(
+            _golden_scene(g, i, device, None),
+            _golden_cfg(g, skybox_bilinear=bilinear))
+        caps = ((SKY_MESH_KNIFE_CAP, MESH_FLIP_CAP) if mesh
+                else (SKY_KNIFE_CAP, FLIP_CAP))
+        stats = golden_bar(g[f"fb{i}"], fb.to_array().cpu().numpy(),
+                           g[f"k1_{i}"], g[f"k2_{i}"], int(g[f"rays{i}"]),
+                           int(rays), *caps)
+        out.append({"t": float(t), "mesh": mesh, "bilinear": bilinear,
+                    **stats})
     return out
 
 
@@ -286,24 +360,16 @@ def check_pathtrace_golden(pathtrace_frame, device,
     frame."""
     import torch
 
-    from ttrt_torch.config import RenderConfig
     from ttrt_torch.render.pathtrace import AreaLights
-    from ttrt_torch.scene import scene_from_numpy
 
     g = np.load(PT_GOLDEN)
-    width, height, spp, bounces = (int(v) for v in g["config"])
-    cfg = RenderConfig(width=width, height=height, rays_per_pixel=spp,
-                       bounce_limit=bounces)
+    cfg = _golden_cfg(g)
     lights = AreaLights.from_numpy(
         {k[len("lights."):]: g[k] for k in g.files
          if k.startswith("lights.")}, dtype=torch.float32, device=device)
     out = []
     for i, t in enumerate(g["times"]):
-        prefix = f"scene{i}."
-        leaves = {k[len(prefix):]: g[k] for k in g.files
-                  if k.startswith(prefix)}
-        scene = scene_from_numpy(leaves, "colors", device=device,
-                                 dtype=torch.float32)
+        scene = _golden_scene(g, i, device, "colors")
         fb, _ = pathtrace_frame(scene, lights, cfg, int(g[f"seed{i}"]))
         stats = bar(g[f"fb{i}"], fb.to_array().cpu().numpy())
         out.append({"t": float(t), **stats})
@@ -507,6 +573,30 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _kernel_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device time of the one kernel whose name holds ``name`` over
+    ``reps`` calls of ``fn``, from torch.profiler."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    (row,) = [e for e in prof.key_averages() if name in e.key]
+    return row.self_device_time_total / row.count / 1e3
+
+
+def demo_bound(rays: int, n_px: int, texel_bytes: int = 0):
+    """The demo kernel's bound (``bound_ms``): every trace costs at least a
+    shadow trace (the cheaper kind) against the 6 spheres and the plane;
+    it reads the packed scene and the sky's texels (an image sky's, once)
+    and writes 16 bytes a pixel."""
+    return bound_ms(
+        rays * (6 * DEMO_SHADOW_SPHERE_OPS + DEMO_SHADOW_PLANE_OPS),
+        4 * (17 + 9 * 6 + 16 + 6 + 7) + texel_bytes + 16 * n_px)
+
+
 def main() -> int:
     import torch
 
@@ -585,15 +675,9 @@ def main() -> int:
     ms = _median_ms(lambda: render_frame_cuda(scene, full, count_rays=False))
     plain_ms = _median_ms(
         lambda: render_frame_plain(scene, full, count_rays=False), warmup=1)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            render_frame_cuda(scene, full, count_rays=False)
-        torch.cuda.synchronize()
-    (kernel_row,) = [e for e in prof.key_averages()
-                     if "render_kernel" in e.key]
-    kernel_device_ms = (kernel_row.self_device_time_total
-                        / kernel_row.count / 1e3)
+    kernel_device_ms = _kernel_ms(
+        lambda: render_frame_cuda(scene, full, count_rays=False),
+        "render_kernel")
     fb, _ = render_frame_cuda(scene, full, count_rays=False)
     template = ansi_template(full.width, full.height, dev)
     encode_ms = _median_ms(lambda: encode_ansi_frame(fb, template))
@@ -644,13 +728,7 @@ def main() -> int:
           f"{N_FRAMES / wall:.2f} fps end to end (pacing off), stage means "
           f"(ms) {json.dumps(split)}; kernel launches {launches}, plain "
           f"launches {plain_launches}")
-    # the demo kernel's bound: every trace costs at least a shadow trace
-    # (the cheaper kind) against the 6 spheres and the plane; it reads the
-    # packed scene and writes 16 bytes a pixel
-    n_px = full.width * full.height
-    render_bound = bound_ms(
-        rays * (6 * DEMO_SHADOW_SPHERE_OPS + DEMO_SHADOW_PLANE_OPS),
-        4 * (17 + 9 * 6 + 16 + 6 + 7) + 16 * n_px)
+    render_bound = demo_bound(rays, full.width * full.height)
     kernels = [{
         "name": "render",
         "route": "cuda",
@@ -664,8 +742,10 @@ def main() -> int:
         "bound_by": render_bound[1],
         "library_ms": None,  # no single PyTorch call renders a frame
     }]
-    kernels += mesh_phases(card, dev, full)
+    mesh_kernels, fused_work = mesh_phases(card, dev, full)
+    kernels += mesh_kernels
     kernels.append(pathtrace_phases(card, dev, full))
+    kernels += sky_phases(card, dev, full, fused_work)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -676,9 +756,10 @@ def main() -> int:
     return 0
 
 
-def mesh_phases(card: str, dev, full) -> list:
+def mesh_phases(card: str, dev, full) -> tuple:
     """Phases A-E; returns the two mesh kernels' entries of the kernels
-    line."""
+    line, and the work of phase D's fused frame (its scene time, traces,
+    and the FP32 operations and bytes of its bound)."""
     import torch
 
     from ttrt_torch import app, assets
@@ -768,13 +849,8 @@ def mesh_phases(card: str, dev, full) -> list:
     _, rays = fused_cuda(scene, full)
     rays = int(rays)
     fused_ms = _median_ms(lambda: fused_cuda(scene, full))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fused_cuda(scene, full)
-        torch.cuda.synchronize()
-    (row,) = [e for e in prof.key_averages() if "mesh_fused_kernel" in e.key]
-    fused_kernel_ms = row.self_device_time_total / row.count / 1e3
+    fused_kernel_ms = _kernel_ms(lambda: fused_cuda(scene, full),
+                                 "mesh_fused_kernel", reps=5)
     fused_plain_ms = _median_ms(lambda: fused_plain(scene, full), reps=1,
                                 warmup=0)
     table_bytes = sum(v.numel() * v.element_size() for v in pack.tables
@@ -783,9 +859,10 @@ def mesh_phases(card: str, dev, full) -> list:
     n_quarters = boxes[0].shape[0]
     work = frame_work(scene, full, boxes)
     assert work["traces"] == work["plain_traces"] == rays, (work, rays)
-    fused_bound = bound_ms(
-        rays * n_quarters * SLAB_OPS + work["narrow_ops"],
-        table_bytes + 16 * full.width * full.height)
+    fused_work = {"t": 3.3, "rays": rays,
+                  "ops": rays * n_quarters * SLAB_OPS + work["narrow_ops"],
+                  "bytes": table_bytes + 16 * full.width * full.height}
+    fused_bound = bound_ms(fused_work["ops"], fused_work["bytes"])
     per_kind = {k: [work[k][0], round(work[k][1] / max(work[k][0], 1), 2)]
                 for k in ("primary", "bounce", "shadow")}
     print(f"phase D [{card}]: fused kernel, 480x280x10spp, 10 bounces, "
@@ -877,7 +954,7 @@ def mesh_phases(card: str, dev, full) -> list:
         "bound_ms": near_bound[0],
         "bound_by": near_bound[1],
         "library_ms": None,  # no PyTorch call finds a nearest hit
-    }]
+    }], fused_work
 
 
 def pathtrace_phases(card: str, dev, full) -> dict:
@@ -947,13 +1024,9 @@ def pathtrace_phases(card: str, dev, full) -> dict:
     traces = pathtrace.total_traces(work, lights.count)
     pt_ms = _median_ms(
         lambda: pt_cuda(scene, lights, full, seed, count_rays=False))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            pt_cuda(scene, lights, full, seed, count_rays=False)
-        torch.cuda.synchronize()
-    (row,) = [e for e in prof.key_averages() if "pathtrace_kernel" in e.key]
-    pt_kernel_ms = row.self_device_time_total / row.count / 1e3
+    pt_kernel_ms = _kernel_ms(
+        lambda: pt_cuda(scene, lights, full, seed, count_rays=False),
+        "pathtrace_kernel")
     pt_plain_ms = _median_ms(
         lambda: pt_plain(scene, lights, full, seed, count_rays=False),
         reps=3, warmup=1)
@@ -1040,6 +1113,293 @@ def pathtrace_phases(card: str, dev, full) -> dict:
         "bound_by": pt_bound[1],
         "library_ms": None,  # no single PyTorch call renders a frame
     }
+
+
+def sky_phases(card: str, dev, full, fused_work: dict) -> list:
+    """Phases S1-S6; returns the entries of the kernels line of the
+    textured demo and fused kernels, the sky-weight kernel and the
+    pixel-rate kernel. ``fused_work`` is phase D's fused frame, whose
+    geometry phase S2 renders again under the image sky."""
+    import torch
+
+    from ttrt_torch import app, assets
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import mesh_fused, pathtrace, render
+    from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.scene import demo_scene
+    from ttrt_torch.utils.profiling import StageTimers
+
+    milky = assets.load_skybox("milky_way", device=dev)
+    assert milky.procedural is None and milky.dim == 256
+    texel_bytes = milky.packed.numel() * milky.packed.element_size()
+    fused_cuda = mesh_fused.render_band_mesh_fused_cuda
+    fused_plain = mesh_fused.render_band_mesh_fused_plain
+    n_px = full.width * full.height
+    unpaced = full.with_(frame_rate=1e9)
+
+    def posed(scene, t: float):
+        return scene.with_camera_frame(
+            orbit_camera_frame(t, dtype=torch.float32, device=dev))
+
+    def demo_at(t: float, sky=milky, cfg=full):
+        return posed(demo_scene(sky, cfg.width, cfg.height,
+                                dtype=torch.float32, device=dev), t)
+
+    def many_at(t: float, cfg=full):
+        return posed(many_sphere_scene(milky, N_SPHERES, cfg.width,
+                                       cfg.height, dtype=torch.float32,
+                                       device=dev), t)
+
+    def frame(fb, cfg) -> np.ndarray:
+        out = fb.to_array().cpu().numpy()
+        assert out.shape == (cfg.height, cfg.width, 3), out.shape
+        assert np.isfinite(out).all()
+        return out
+
+    # -- phase S1: the demo kernel under an image sky vs its plain version --
+    big = assets.skybox_from_faces(assets.make_starfield_skybox(1024),
+                                   device=dev)
+    cases = [(0.0, milky, {}), (1.5, milky, {}), (7.3, milky, {}),
+             (1.5, milky, {"skybox_bilinear": True}), (1.5, big, {})]
+    demo_err = 0.0
+    for t, sky, flags in cases:
+        scene = demo_at(t, sky)
+        cfg = full.with_(**flags)
+        fb_k, rays_k = render.render_frame_cuda(scene, cfg)
+        fb_p, rays_p = render.render_frame_plain(scene, cfg)
+        torch.cuda.synchronize()
+        stats = exact_bar(frame(fb_p, cfg), frame(fb_k, cfg), rays_p, rays_k)
+        # the kernel mirrors its plain version op for op: bit for bit
+        assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, stats
+        demo_err = max(demo_err, stats["max_abs"])
+        print(f"phase S1: starfield dim {sky.dim} t={t} {flags or ''} "
+              f"{json.dumps(stats)}")
+    del big
+
+    # -- phase S2: the fused kernel under an image sky vs its plain version -
+    small = full.with_(width=240, height=140, skybox_bilinear=True)
+    fused_err = 0.0
+    for cfg in (full, small):
+        scene = many_at(fused_work["t"], cfg)
+        t0 = time.perf_counter()
+        fb_k, rays_k = fused_cuda(scene, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fb_p, rays_p = fused_plain(scene, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        stats = exact_bar(frame(fb_p, cfg), frame(fb_k, cfg), rays_p, rays_k)
+        assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, stats
+        fused_err = max(fused_err, stats["max_abs"])
+        if cfg is full:
+            # the sky changes no geometry: phase D's frame, traced again
+            assert int(rays_k) == fused_work["rays"], (rays_k, fused_work)
+            fused_plain_ms = 1e3 * (t2 - t1)
+        print(f"phase S2: milky_way t={fused_work['t']} {cfg.width}x"
+              f"{cfg.height} bilinear={cfg.skybox_bilinear} "
+              f"{json.dumps(stats)} (kernel {t1 - t0:.3f} s, plain "
+              f"{t2 - t1:.3f} s, host clock)")
+
+    # -- phase S3: both kernels vs the stored JAX oracle ---------------------
+    for stats in check_sky_golden(render.render_frame_cuda,
+                                  mesh_fused.render_frame_mesh_fused, dev):
+        print(f"phase S3: golden {json.dumps(stats)}")
+    torch.cuda.synchronize()
+
+    # -- phase S4: timing, and the main paths under milky_way ----------------
+    scene = demo_at(1.5)
+    demo_ms = {}
+    for bilinear in (False, True):
+        cfg = full.with_(skybox_bilinear=bilinear)
+        _, rays = render.render_frame_cuda(scene, cfg)
+        run = lambda: render.render_frame_cuda(scene, cfg,  # noqa: E731
+                                               count_rays=False)
+        demo_ms[bilinear] = (_median_ms(run),
+                             _kernel_ms(run, "render_kernel"))
+        print(f"phase S4 [{card}]: demo, milky_way, bilinear={bilinear}, "
+              f"480x280x10spp, 10 bounces: {int(rays)} traces; wrapper "
+              f"{demo_ms[bilinear][0]:.4f} ms (CUDA events, median of 20), "
+              f"kernel alone {demo_ms[bilinear][1]:.4f} ms (torch.profiler, "
+              f"mean of 20)")
+    demo_rays = int(render.render_frame_cuda(scene, full)[1])
+    demo_plain_ms = _median_ms(
+        lambda: render.render_frame_plain(scene, full, count_rays=False),
+        reps=5, warmup=1)
+    many = many_at(fused_work["t"])
+    fused_ms = _median_ms(lambda: fused_cuda(many, full))
+    fused_kernel_ms = _kernel_ms(lambda: fused_cuda(many, full),
+                                 "mesh_fused_kernel", reps=5)
+    print(f"phase S4 [{card}]: fused, milky_way, t={fused_work['t']}: "
+          f"wrapper {fused_ms:.4f} ms (median of 20), kernel alone "
+          f"{fused_kernel_ms:.4f} ms (mean of 5), plain version "
+          f"{fused_plain_ms:.3f} ms (phase S2, host clock); demo plain "
+          f"version {demo_plain_ms:.3f} ms (median of 5)")
+
+    # --skybox <dir>: six seeded random faces of another dim, read from PPM
+    faces_dir = tempfile.TemporaryDirectory()
+    rng = np.random.default_rng(4)
+    for face in assets.FACE_NAMES:
+        assets.write_ppm(os.path.join(faces_dir.name, f"{face}.ppm"),
+                         rng.integers(0, 256, (FACE_DIM, FACE_DIM, 3),
+                                      dtype=np.uint8))
+    faces = faces_dir.name
+    bilinear = unpaced.with_(skybox_bilinear=True)
+    counters = (render.render_frame_cuda, render.render_frame_plain,
+                fused_cuda, fused_plain, pathtrace.pathtrace_frame_cuda,
+                pathtrace.pathtrace_frame_plain, render.sky_weights_cuda,
+                render.sky_weights_plain, render.render_frame_pixel_rate_cuda,
+                render.render_frame_pixel_rate_plain)
+    launches = {}
+    for name, sky, cfg, frames, kw in (
+            ("demo", "milky_way", unpaced, N_FRAMES, {"device": dev}),
+            ("many", "milky_way", unpaced, MESH_FRAMES,
+             {"scene": many_at(0.0)}),
+            ("pathtrace", "milky_way", unpaced, 1,
+             {"device": dev, "pathtrace": True}),
+            ("faces", faces, bilinear, FACE_FRAMES, {"device": dev}),
+            ("faces many", faces, bilinear, FACE_FRAMES,
+             {"scene": app.make_scene("many", bilinear, faces, device=dev,
+                                      n_spheres=N_SPHERES)})):
+        sink = io.BytesIO()
+        timers = StageTimers()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        app.run_animation(cfg, sky, max_frames=frames, interactive=False,
+                          encode="device", stream=sink, timers=timers, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = [fn.launches for fn in counters]
+        validate_stream(sink.getvalue(), full.width, full.height, frames)
+        split = {k: round(st["mean_ms"], 4)
+                 for k, st in timers.summary().items()}
+        label = "milky_way" if sky == "milky_way" else (
+            f"<dir of six {FACE_DIM}-texel faces> --bilinear")
+        print(f"phase S4 [{card}]: --skybox {label}, {name}: {frames} "
+              f"frames in {wall:.3f} s = {frames / wall:.2f} fps end to end "
+              f"(pacing off), stage means (ms) {json.dumps(split)}; launches "
+              f"render {launches[name][:2]}, fused {launches[name][2:4]}, "
+              f"pathtrace {launches[name][4:6]}, sky weights "
+              f"{launches[name][6:8]}, pixel rate {launches[name][8:]} "
+              f"(kernel, plain)")
+    faces_dir.cleanup()
+    assert launches["demo"] == [N_FRAMES] + [0] * 9, launches
+    assert launches["many"] == [0, 0, MESH_FRAMES] + [0] * 7, launches
+    assert launches["pathtrace"] == [0] * 10, launches
+    assert launches["faces"] == [FACE_FRAMES] + [0] * 9, launches
+    assert launches["faces many"] == [0, 0, FACE_FRAMES] + [0] * 7, launches
+    # each kernel's launches over the main paths under an image sky
+    path_launches = [sum(col) for col in zip(*launches.values())]
+
+    # -- phase S5: the sky-weight kernel -------------------------------------
+    sw_cuda, sw_plain = render.sky_weights_cuda, render.sky_weights_plain
+    sw_cuda.launches = sw_plain.launches = 0
+    w_k = render.sky_weights(scene, full)
+    sw_launches = [sw_cuda.launches, sw_plain.launches]
+    assert sw_launches == [1, 0], sw_launches
+    w_p = sw_plain(scene, full)
+    torch.cuda.synchronize()
+    assert w_k.shape == (full.rays_per_pixel, full.height, full.width)
+    sw_err = float((w_k - w_p).abs().max())
+    sw_diff = int((w_k != w_p).sum())
+    assert sw_diff == 0, (sw_diff, sw_err)
+    # its bound: every nearest-hit trace tests the 6 spheres and the plane;
+    # the traces counted on the plain chain (no shadow rays)
+    chain, _ = render._demo_chain(scene, full, shade=False)
+    nearest = int((chain[5] & 0x1F).sum())
+    sw_bound = bound_ms(
+        nearest * (PT_TRACE_OPS + 6 * PT_TRACE_SPHERE_OPS),
+        4 * (17 + 9 * 6 + 16 + 6 + 7) + 4 * w_k.numel())
+    sw_ms = _median_ms(lambda: render.sky_weights_cuda(scene, full))
+    sw_kernel_ms = _kernel_ms(lambda: render.sky_weights_cuda(scene, full),
+                              "sky_weight_kernel")
+    sw_plain_ms = _median_ms(lambda: sw_plain(scene, full), reps=5,
+                             warmup=1)
+    print(f"phase S5 [{card}]: sky weights, 480x280x10, 10 bounces, t=1.5: "
+          f"{w_k.numel()} rays, {nearest} nearest-hit traces, {sw_diff} "
+          f"differ from the plain version (max |d| {sw_err}); wrapper "
+          f"{sw_ms:.4f} ms (median of 20), kernel alone {sw_kernel_ms:.4f} "
+          f"ms (mean of 20), plain version {sw_plain_ms:.3f} ms (median of "
+          f"5); bound {sw_bound[0]:.4f} ms by {sw_bound[1]}; launches "
+          f"(kernel, plain) in this phase's call {sw_launches}")
+
+    # -- phase S6: the pixel-rate kernel -------------------------------------
+    pr_cuda = render.render_frame_pixel_rate_cuda
+    pr_plain = render.render_frame_pixel_rate_plain
+    rate_err = 0.0
+    for sky, t, flags in (("colors", 1.5, {}),
+                          ("uv_checker", 1.5, {"skybox_bilinear": True,
+                                               "specular": True})):
+        s6 = demo_at(t, assets.load_skybox(sky, device=dev))
+        cfg = full.with_(**flags)
+        pr_cuda.launches = pr_plain.launches = 0
+        fb_k, rays_k = render.render_frame_pixel_rate(s6, cfg)
+        rate_launches = [pr_cuda.launches, pr_plain.launches]
+        assert rate_launches == [1, 0], rate_launches
+        fb_p, rays_p = pr_plain(s6, cfg)
+        fb_f, rays_f = render.render_frame_cuda(s6, cfg)
+        torch.cuda.synchronize()
+        out = frame(fb_k, cfg)
+        stats = exact_bar(frame(fb_p, cfg), out, rays_p, rays_k)
+        same = exact_bar(frame(fb_f, cfg), out, rays_f, rays_k)
+        assert stats["max_abs"] == 0.0 and same["max_abs"] == 0.0, (
+            stats, same)
+        rate_err = max(rate_err, stats["max_abs"])
+        print(f"phase S6: pixel rate, {sky} t={t} {flags or ''}: vs plain "
+              f"{json.dumps(stats)}, vs render_frame_cuda max |d| "
+              f"{same['max_abs']}, traces {int(rays_f)}")
+        if sky == "colors":
+            rate_rays = int(rays_k)
+            rate_ms = _median_ms(lambda: pr_cuda(s6, cfg))
+            rate_kernel_ms = _kernel_ms(lambda: pr_cuda(s6, cfg),
+                                        "render_kernel")
+            rate_plain_ms = _median_ms(lambda: pr_plain(s6, cfg), reps=5,
+                                       warmup=1)
+    rate_bound = demo_bound(rate_rays, n_px)
+    print(f"phase S6 [{card}]: pixel rate, colors t=1.5: wrapper "
+          f"{rate_ms:.4f} ms (median of 20), kernel alone "
+          f"{rate_kernel_ms:.4f} ms (mean of 20), plain version "
+          f"{rate_plain_ms:.3f} ms (median of 5); bound {rate_bound[0]:.4f} "
+          f"ms by {rate_bound[1]}; launches (kernel, plain) in this phase's "
+          f"call {rate_launches}")
+
+    demo_bound_img = demo_bound(demo_rays, n_px, texel_bytes)
+    fused_bound = bound_ms(fused_work["ops"],
+                           fused_work["bytes"] + texel_bytes)
+    print(f"phase S4-S6 [{card}]: bounds: textured demo "
+          f"{demo_bound_img[0]:.4f} ms by {demo_bound_img[1]} ({demo_rays} "
+          f"traces, {texel_bytes} bytes of texels), textured fused "
+          f"{fused_bound[0]:.4f} ms by {fused_bound[1]}")
+    def entry(**kw) -> dict:
+        # no single PyTorch call renders a frame or a sky-weight map
+        return {"route": "cuda", "library_ms": None, **kw}
+
+    return [
+        entry(name="render_image_sky",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:989",
+              launches=path_launches[0], max_abs_err=demo_err,
+              ms=demo_ms[False][0], plain_ms=demo_plain_ms,
+              bound_ms=demo_bound_img[0], bound_by=demo_bound_img[1]),
+        entry(name="mesh_fused_image_sky",
+              source="ttrt_torch/kernels/csrc/mesh.cu",
+              replaces="ttrt/kernels/mesh_fused.py:1133",
+              launches=path_launches[2], max_abs_err=fused_err,
+              ms=fused_ms, plain_ms=fused_plain_ms,
+              bound_ms=fused_bound[0], bound_by=fused_bound[1]),
+        entry(name="sky_weights",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:860",
+              launches=path_launches[6], max_abs_err=sw_err, ms=sw_ms,
+              plain_ms=sw_plain_ms, bound_ms=sw_bound[0],
+              bound_by=sw_bound[1]),
+        entry(name="render_pixel_rate",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:612",
+              launches=path_launches[8], max_abs_err=rate_err, ms=rate_ms,
+              plain_ms=rate_plain_ms, bound_ms=rate_bound[0],
+              bound_by=rate_bound[1]),
+    ]
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Write the JAX oracle frames for the port: tests/data/torch_port_golden.npz
 (the demo scene), tests/data/torch_port_golden_mesh.npz (the many-object
-scene) and tests/data/torch_port_golden_pathtrace.npz (the path tracer).
+scene), tests/data/torch_port_golden_pathtrace.npz (the path tracer) and
+tests/data/torch_port_golden_sky.npz (both scenes under an image cubemap).
 
 The machine with the card has no JAX, so the checks of the CUDA kernels
-against the JAX oracle (``chip_smoke.py``, phases 3, C and P2) read the
+against the JAX oracle (``chip_smoke.py``, phases 3, C, P2 and S3) read the
 oracle from these files. For each scene time in TIMES a file holds:
 
   - ``scene{i}.<field path>``: the JAX Scene's (or MeshScene's) leaves,
@@ -18,9 +19,13 @@ adds n_spheres). The path tracer's file holds, for each time, the scene's
 leaves, the frame seed ``seed{i}`` (the JAX app's, ttrt/app.py:142-147)
 and ``fb{i}``, the JAX kernel's frame (``pathtrace_frame_pallas`` in
 interpret mode), plus the area light's leaves ``lights.<field path>``.
+The image-sky file holds SKY_FRAMES frames, each of the demo scene or the
+many-object scene under the untagged ``make_starfield_skybox(SKY_IMAGE_DIM)``
+cubemap, nearest or bilinear, with the demo file's keys per frame (``times``
+per frame) and the per-frame flags ``mesh`` and ``bilinear``.
 
 Run from the repository root:  python tests/make_torch_golden.py
-[demo|mesh|pathtrace] (all three files without an argument).
+[demo|mesh|pathtrace|sky] (all four files without an argument).
 ``tests/test_torch_golden.py`` regenerates the first two files' arrays in
 memory and checks that each stored file equals them (the many-object file
 without its knife masks, whose two minutes of JAX renders are too slow for
@@ -49,7 +54,8 @@ _TESTS = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_TESTS, os.path.dirname(_TESTS)]  # knife_util, ttrt
 
 from knife_util import knife_mask, quantize_u8  # noqa: E402
-from ttrt.assets import make_colors_skybox, skybox_from_faces  # noqa: E402
+from ttrt.assets import (make_colors_skybox,  # noqa: E402
+                         make_starfield_skybox, skybox_from_faces)
 from ttrt.config import RenderConfig  # noqa: E402
 from ttrt.frames import orbit_camera_frame  # noqa: E402
 from ttrt.kernels.pathtrace_pallas import (_mix32,  # noqa: E402
@@ -63,6 +69,7 @@ GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden.npz")
 MESH_GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden_mesh.npz")
 PT_GOLDEN_PATH = os.path.join(_TESTS, "data",
                               "torch_port_golden_pathtrace.npz")
+SKY_GOLDEN_PATH = os.path.join(_TESTS, "data", "torch_port_golden_sky.npz")
 WIDTH, HEIGHT, SPP, BOUNCES = 64, 32, 2, 10
 TIMES = (0.7, 3.3)
 # more than 4 sweep chunks of the JAX fused kernel (tests/test_mesh_fused.py)
@@ -74,6 +81,12 @@ PT_SEED = 0
 # the 'colors' cubemap is one color per face, so its size changes no frame;
 # 16 keeps the stored texels small
 SKY_DIM = 16
+# the image-sky golden's starfield: at 16 texels a face it has no stars
+# (int(0.002 * 16 * 16) == 0); at 64 it has 8 a face
+SKY_IMAGE_DIM = 64
+# (mesh, bilinear, t) of each frame of the image-sky golden
+SKY_FRAMES = tuple((mesh, bilinear, t) for mesh in (False, True)
+                   for bilinear in (False, True) for t in TIMES)
 
 
 def scene_leaves(scene) -> dict:
@@ -115,10 +128,11 @@ def jax_scene(t: float, width: int = WIDTH, height: int = HEIGHT,
 
 def jax_mesh_scene(t: float, n_spheres: int = MESH_SPHERES,
                    width: int = WIDTH, height: int = HEIGHT, seed: int = 0,
-                   floor_cells: int = 16, procedural: str = "colors"):
+                   floor_cells: int = 16, procedural: str = "colors",
+                   sky=make_colors_skybox, sky_dim: int = SKY_DIM):
     """The JAX many-object scene with its float32 camera pose at time t."""
     scene = many_sphere_scene(
-        skybox_from_faces(make_colors_skybox(SKY_DIM), jnp.float32,
+        skybox_from_faces(sky(sky_dim), jnp.float32,
                           procedural=procedural),
         n_spheres=n_spheres, width_px=width, height_px=height, seed=seed,
         floor_cells=floor_cells,
@@ -128,28 +142,45 @@ def jax_mesh_scene(t: float, n_spheres: int = MESH_SPHERES,
     return scene.with_camera_frame(frame)
 
 
+def _golden_cfg(**flags) -> RenderConfig:
+    return RenderConfig(width=WIDTH, height=HEIGHT, rays_per_pixel=SPP,
+                        bounce_limit=BOUNCES, dtype=jnp.float32, **flags)
+
+
+def _frame(out: dict, i: int, scene, cfg, knife: bool,
+           also=None) -> None:
+    """Frame ``i`` of a golden into ``out``: the scene's leaves, the
+    oracle's frame and trace count and, with ``knife``, its K1/K2 masks;
+    ``also``, a (scene, cfg) of the same geometry, adds its masks."""
+    fb, rays = render_frame(scene, cfg, count_rays=True)
+    ref = np.asarray(fb.to_array(), np.float32)
+    for key, value in scene_leaves(scene).items():
+        out[f"scene{i}.{key}"] = value
+    out[f"fb{i}"] = ref
+    if knife:
+        masks = [knife_mask(scene, cfg, quantize_u8(ref), eps)
+                 for eps in (3e-6, 1e-4)]
+        if also is not None:
+            s2, c2 = also
+            q2 = quantize_u8(np.asarray(render_frame(s2, c2)[0].to_array(),
+                                        np.float32))
+            masks = [m | knife_mask(s2, c2, q2, eps)
+                     for m, eps in zip(masks, (3e-6, 1e-4))]
+        out[f"k1_{i}"], out[f"k2_{i}"] = masks
+    out[f"rays{i}"] = np.asarray(rays, np.int64)
+
+
 def _frames(make_scene, config, knife: bool = True) -> dict:
     """The golden's arrays; without ``knife`` the K1/K2 masks (three
     quarters of the time, and a function of the scene, the config and the
     frame) are left out."""
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, rays_per_pixel=SPP,
-                       bounce_limit=BOUNCES, dtype=jnp.float32)
+    cfg = _golden_cfg()
     out = {
         "times": np.asarray(TIMES, np.float64),
         "config": np.asarray(config, np.int64),
     }
     for i, t in enumerate(TIMES):
-        scene = make_scene(t)
-        fb, rays = render_frame(scene, cfg, count_rays=True)
-        ref = np.asarray(fb.to_array(), np.float32)
-        q_ref = quantize_u8(ref)
-        for key, value in scene_leaves(scene).items():
-            out[f"scene{i}.{key}"] = value
-        out[f"fb{i}"] = ref
-        if knife:
-            out[f"k1_{i}"] = knife_mask(scene, cfg, q_ref, 3e-6)
-            out[f"k2_{i}"] = knife_mask(scene, cfg, q_ref, 1e-4)
-        out[f"rays{i}"] = np.asarray(rays, np.int64)
+        _frame(out, i, make_scene(t), cfg, knife)
     return out
 
 
@@ -163,6 +194,40 @@ def mesh_golden_arrays(knife: bool = True) -> dict:
     16x16-cell floor mesh."""
     return _frames(jax_mesh_scene,
                    [WIDTH, HEIGHT, SPP, BOUNCES, MESH_SPHERES], knife)
+
+
+def sky_golden_arrays(knife: bool = True) -> dict:
+    """The image-sky golden: SKY_FRAMES, the demo scene and the
+    MESH_SPHERES-sphere scene under the untagged SKY_IMAGE_DIM starfield,
+    nearest and bilinear.
+
+    Each frame's knife masks are the union of its own and those of the
+    same geometry under the 'colors' sky (nearest; the demo and mesh
+    goldens' masks). The geometry's knife edges do not depend on the sky,
+    but which of them the perturbed renders expose does: each sky is
+    another XLA program, which contracts other products into fused
+    multiply-adds. At t = 0.7 a shadow ray leaves the demo's magenta
+    sphere from a point whose c = |p - C|^2 - r^2 rounds to 0.0: there the
+    oracle's t0 > 0 (sqrt of the rounded b*b) and the kernels' c > 0
+    disagree, and only the 'colors' program's perturbations flip that
+    pixel."""
+    out = {
+        "times": np.asarray([t for _, _, t in SKY_FRAMES], np.float64),
+        "mesh": np.asarray([m for m, _, _ in SKY_FRAMES]),
+        "bilinear": np.asarray([b for _, b, _ in SKY_FRAMES]),
+        "config": np.asarray([WIDTH, HEIGHT, SPP, BOUNCES, MESH_SPHERES,
+                              SKY_IMAGE_DIM], np.int64),
+    }
+    for i, (mesh, bilinear, t) in enumerate(SKY_FRAMES):
+        sky = dict(sky=make_starfield_skybox, sky_dim=SKY_IMAGE_DIM,
+                   procedural=None)
+        scene = (jax_mesh_scene(t, **sky) if mesh
+                 else jax_scene(t, WIDTH, HEIGHT, **sky))
+        colors = scene._replace(skybox=skybox_from_faces(
+            make_colors_skybox(SKY_DIM), jnp.float32, procedural="colors"))
+        _frame(out, i, scene, _golden_cfg(skybox_bilinear=bilinear), knife,
+               also=(colors, _golden_cfg()))
+    return out
 
 
 def jax_area_lights():
@@ -206,12 +271,13 @@ def pathtrace_golden_arrays() -> dict:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["demo", "mesh", "pathtrace"]
+    which = sys.argv[1:] or ["demo", "mesh", "pathtrace", "sky"]
     for name in which:
         path, arrays = {
             "demo": (GOLDEN_PATH, golden_arrays),
             "mesh": (MESH_GOLDEN_PATH, mesh_golden_arrays),
             "pathtrace": (PT_GOLDEN_PATH, pathtrace_golden_arrays),
+            "sky": (SKY_GOLDEN_PATH, sky_golden_arrays),
         }[name]
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **arrays())

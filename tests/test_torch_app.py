@@ -61,7 +61,8 @@ def test_cli_cuda_without_a_card_exits_with_one_error_line():
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--skybox", "milky_way"], "image cubemaps are not yet ported"),
+    (["--pathtrace", "--renderer", "kernel", "--skybox", "milky_way"],
+     "takes a procedural sky"),
     (["--skybox", "no_such_sky"], "Error opening skybox"),
 ])
 def test_cli_refusals_are_one_line(args, match):

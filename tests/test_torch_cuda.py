@@ -195,3 +195,57 @@ def test_pathtrace_kernel_meets_stored_golden(cuda):
     for stats in chip_smoke.check_pathtrace_golden(
             pathtrace.pathtrace_frame_cuda, cuda):
         assert stats["share"] <= chip_smoke.PT_SHARE
+
+
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_image_sky_kernels_match_plain_versions(cuda, bilinear):
+    """The demo and fused kernels under the 'milky_way' image cubemap
+    (texels loaded in the kernel): equal to their plain versions bit for
+    bit, trace counts included."""
+    cfg = RenderConfig(width=97, height=41, rays_per_pixel=3,
+                       bounce_limit=10, skybox_bilinear=bilinear)
+    for kernel, plain, scene in [
+            (render.render_frame, render.render_frame_plain,
+             _scene("milky_way", 2.2, cfg, cuda)),
+            (mesh_fused.render_frame_mesh_fused,
+             mesh_fused.render_frame_mesh_fused_plain,
+             _mesh_scene(3.3, cfg, cuda, sky="milky_way"))]:
+        assert scene.skybox.procedural is None
+        fb_k, rays_k = kernel(scene, cfg)
+        fb_p, rays_p = plain(scene, cfg)
+        torch.cuda.synchronize()
+        stats = chip_smoke.exact_bar(fb_p.to_array().cpu().numpy(),
+                                     fb_k.to_array().cpu().numpy(), rays_p,
+                                     rays_k)
+        assert stats["max_abs"] == 0.0, stats
+
+
+def test_image_sky_kernels_meet_stored_golden(cuda):
+    stats = chip_smoke.check_sky_golden(render.render_frame_cuda,
+                                        mesh_fused.render_frame_mesh_fused,
+                                        cuda)
+    assert len(stats) == 8 and all(s["uncovered"] == 0 for s in stats)
+
+
+def test_sky_weight_and_pixel_rate_kernels_match_plain_versions(cuda):
+    """The sky-weight kernel equals its plain version bit for bit; the
+    pixel-rate kernel equals its plain version and the render kernel, trace
+    counts included."""
+    cfg = RenderConfig(width=97, height=41, rays_per_pixel=3,
+                       bounce_limit=10, specular=True)
+    scene = _scene("uv_checker", 2.2, cfg, cuda)
+    before = (render.sky_weights_cuda.launches,
+              render.render_frame_pixel_rate_cuda.launches)
+    w = render.sky_weights(scene, cfg)
+    fb, rays = render.render_frame_pixel_rate(scene, cfg)
+    assert (render.sky_weights_cuda.launches,
+            render.render_frame_pixel_rate_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    w_p = render.sky_weights_plain(scene, cfg)
+    fb_p, rays_p = render.render_frame_pixel_rate_plain(scene, cfg)
+    fb_f, rays_f = render.render_frame_cuda(scene, cfg)
+    torch.cuda.synchronize()
+    assert w.shape == (3, 41, 97) and torch.equal(w, w_p)
+    assert torch.equal(fb.to_array(), fb_p.to_array())
+    assert torch.equal(fb.to_array(), fb_f.to_array())
+    assert int(rays) == int(rays_p) == int(rays_f)

@@ -101,9 +101,9 @@ def test_fused_bands_and_sample_slices_sum_to_the_frame():
 @pytest.mark.parametrize("change,match", [
     ({"dtype": torch.float64}, "float32"),
     ({"bounce_limit": 17}, "bounce_limit"),
-    # bilinear runs in the kernel on procedural skies; on an image cubemap
-    # it is refused with the cubemap
-    ({"skybox_bilinear": True, "sky": None}, "not yet ported"),
+    # image cubemaps render, nearest and bilinear; a tag that names no
+    # pattern the kernels evaluate is refused
+    ({"skybox_bilinear": True, "sky": "starfield"}, "unknown procedural"),
 ])
 def test_fused_refuses_unported_configs(change, match):
     _, ts = _pair(200, 8, 4, cells=3)

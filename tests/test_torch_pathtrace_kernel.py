@@ -37,7 +37,6 @@ from ttrt.render.integrator import render_frame as jax_render_frame
 from ttrt_torch.app import make_scene
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.kernels import pathtrace, render
-from ttrt_torch.kernels.render import _sky_color_procedural_bilinear
 from ttrt_torch.render.pathtrace import AreaLights
 from ttrt_torch.scene import Skybox, scene_from_numpy
 
@@ -94,7 +93,7 @@ def test_area_light_packing_and_kernel_gates():
             (ts, tl, cfg.with_(dtype=torch.float64), "float32"),
             (ts, tl, cfg.with_(bounce_limit=11), "bounce_limit <= 10"),
             (ts, eleven, cfg, "<= 10 area lights"),
-            (image_sky, tl, cfg, "image cubemaps"),
+            (image_sky, tl, cfg, "procedural sky"),
             (mesh, tl, cfg, "demo scene")]:
         with pytest.raises(ConfigError, match=match):
             pathtrace.pathtrace_frame(scene, lights, c, 0)
@@ -173,8 +172,9 @@ def test_bilinear_procedural_sky_is_jax_bit_for_bit(kind):
     assert d.shape[1] > 8192 and (np.abs(d[0] - d[1]) < 1e-2).sum() > 64
     want = render_pallas._sky_color_procedural_bilinear(
         *(jnp.asarray(c) for c in d), 16, kind)
-    got = _sky_color_procedural_bilinear(
-        *(torch.from_numpy(c) for c in d), 16, kind)
+    got = render.sky_color(
+        *(torch.from_numpy(c) for c in d),
+        Skybox(torch.zeros((6, 16, 16), dtype=torch.int32), kind), True)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 

@@ -87,11 +87,12 @@ def test_specular_and_subtract_change_the_frame():
 
 @pytest.mark.parametrize("change,match", [
     ({"cfg": {"dtype": torch.float64}}, "float32"),
-    # bilinear runs in the kernels on procedural skies; on an image
-    # cubemap it is refused with the cubemap
-    ({"cfg": {"skybox_bilinear": True}, "sky": None}, "not yet ported"),
+    # image cubemaps render, nearest and bilinear, but under the same
+    # bounce cap; a tag that names no pattern the kernels evaluate is refused
+    ({"cfg": {"skybox_bilinear": True}, "sky": "starfield"},
+     "unknown procedural"),
     ({"cfg": {"bounce_limit": 17}}, "bounce_limit"),
-    ({"sky": None}, "not yet ported"),
+    ({"cfg": {"bounce_limit": 17}, "sky": None}, "bounce_limit"),
 ])
 def test_render_frame_refuses_unported_configs(change, match):
     _, _, ts, tcfg = _pair(make_colors_skybox, 0.7, "colors")

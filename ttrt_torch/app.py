@@ -94,7 +94,8 @@ def _pick_pathtracer(scene, lights, cfg: RenderConfig,
     app.py:73-80): True for the path-tracing kernel, False for the eager
     estimator (``render.pathtrace.pathtrace_frame``).
 
-    - ``eager``, or ``auto`` in float64 or on a ``MeshScene``: the
+    - ``eager``, or ``auto`` in float64, on a ``MeshScene`` or under an
+      image cubemap (the kernel is procedural-sky only, as JAX's): the
       estimator;
     - otherwise the kernel (the CUDA kernel for CUDA tensors, its plain
       version for CPU tensors). A config outside the kernel's gates is
@@ -103,7 +104,8 @@ def _pick_pathtracer(scene, lights, cfg: RenderConfig,
     if renderer not in RENDERERS:
         raise ConfigError(f"unknown renderer {renderer!r}")
     if renderer == "eager" or (renderer == "auto" and (
-            cfg.dtype != torch.float32 or isinstance(scene, MeshScene))):
+            cfg.dtype != torch.float32 or isinstance(scene, MeshScene)
+            or scene.skybox.procedural is None)):
         _check_f64_mesh_on_cpu(scene, cfg)
         return False
     try:
@@ -355,7 +357,8 @@ def main(argv=None) -> int:
     p.add_argument("--fps", type=float, default=60.0,
                    help="target frame rate")
     p.add_argument("--skybox", default="colors",
-                   help="procedural skybox: colors or uv_checker")
+                   help="skybox name or directory (colors, uv_checker, "
+                        "milky_way, ...)")
     p.add_argument("--bilinear", action="store_true",
                    help="bilinear skybox filtering (reference roadmap item)")
     p.add_argument("--specular", action="store_true",
@@ -403,7 +406,7 @@ def main(argv=None) -> int:
                    help="render path: a kernel or the eager integrator "
                         "(with --pathtrace: the eager estimator); auto "
                         "picks the kernel unless --f64 (or, with "
-                        "--pathtrace, --scene many)")
+                        "--pathtrace, --scene many or an image skybox)")
     args = p.parse_args(argv)
 
     if args.spp < 1 or args.width < 1 or args.height < 1 or args.bounces < 1:

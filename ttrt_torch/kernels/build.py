@@ -103,15 +103,21 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ttrt_render_limits.restype = None
     lib.ttrt_render_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular,
+    # subtract, sky_kind, sky_dim, bilinear, texels, pixel_rate, out_rgb,
+    # out_count, stream
     lib.ttrt_render.restype = ctypes.c_int
-    lib.ttrt_render.argtypes = [p] + [i] * 12 + [p, p, p]
+    lib.ttrt_render.argtypes = [p] + [i] * 12 + [p, i, p, p, p]
+    # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w, stream
+    lib.ttrt_sky_weights.restype = ctypes.c_int
+    lib.ttrt_sky_weights.argtypes = [p] + [i] * 7 + [p, p]
     # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, qbox, order,
     # kb_sph, kb_tri, W, H, N, n_rows, n_samples, bounce_limit, specular,
-    # subtract, sky_kind, sky_dim, bilinear, scale, out_rgb, out_count,
-    # stream
+    # subtract, sky_kind, sky_dim, bilinear, texels, scale, out_rgb,
+    # out_count, stream
     lib.ttrt_mesh_fused.restype = ctypes.c_int
     lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 13
-                                    + [f, p, p, p])
+                                    + [p, f, p, p, p])
     # ox oy oz dx dy dz, n, sph, sph_id, tri, tri_id, qbox, kb_sph, kb_tri,
     # mode, out_t, out_id, stream
     lib.ttrt_cluster_nearest.restype = ctypes.c_int

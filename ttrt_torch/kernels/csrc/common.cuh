@@ -1,6 +1,7 @@
-// Device functions shared by the render kernels (render.cu, mesh.cu): the
-// float helpers that round like the JAX oracle, the procedural sky, the
-// lighting with shadow rays, and the per-pixel sample and bounce loops.
+// Device functions shared by the render kernels (render.cu, mesh.cu,
+// pathtrace.cu): the float helpers that round like the JAX oracle, the sky
+// (a procedural pattern or an image cubemap's texels), the lighting with
+// shadow rays, and the per-pixel sample and bounce loops.
 // A kernel supplies a tracer: a type with
 //
 //   Hit  trace(ox, oy, oz, dx, dy, dz) const;    // nearest hit + fixups
@@ -173,6 +174,26 @@ __device__ void apply_lighting(const Tracer& tr, const Lights& L,
   outb = clamp01(b);
 }
 
+// Sky kinds (ttrt_torch/kernels/render.py::SKY_KINDS and SKY_IMAGE).
+constexpr int SKY_COLORS = 0;
+constexpr int SKY_UV_CHECKER = 1;
+constexpr int SKY_IMAGE = 2;
+
+// The cubemap the kernels sample: a procedural pattern evaluated in place
+// (SKY_COLORS, SKY_UV_CHECKER), or an image cubemap's packed 0x00RRGGBB
+// texels, (6, dim, dim) in face order, read from device memory
+// (SKY_IMAGE). The texel loads take the place of the TPU kernels' deferred
+// epilogue gather, the texel index they carried in bits 10..30 of the count
+// stream (hence JAX's dim <= 591 cap, which the port does not have) and the
+// quad-packed bilinear table (ttrt/render/skybox.py:197-206). A 256-texel
+// cubemap is 1,572,864 bytes, which L2 holds.
+struct Sky {
+  int kind;
+  int dim;
+  bool bilinear;
+  const int* texels;  // SKY_IMAGE only
+};
+
 // (face, u, v) of get_skybox_color (TerminalRayTracer.c:700-776): the
 // strict-greater face scan, the folded uv fixups, u and v clamped to
 // [-0.5, 0.5].
@@ -230,20 +251,40 @@ __device__ void procedural_texel(int face, int ui, int vi, int dim, int kind,
   b = (float)(int)(bb * 255.0f) / 255.0f;
 }
 
-// The procedural sky along d (render_pallas.py:559, :568): the nearest
-// texel by the reference's int truncation, or (bilinear) the pattern at the
-// four texel centers around (u, v), clamped within the face and blended in
-// sample_skybox(bilinear=True)'s lerp order.
-__device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
-                          bool bilinear, float& r, float& g, float& b) {
+// Texel (face, row vi, column ui) of the sky as float [0, 1] channels: the
+// procedural pattern, or the image texel divided by 255 as the JAX oracle's
+// eager _unpack does (ttrt/render/skybox.py:157-168: a true division, IEEE
+// '/' without fast math; XLA's jitted epilogue multiplies by 1/255 instead).
+// The port packs texels as int32 (ttrt_torch/assets.py), JAX as uint32;
+// both hold values below 2^24, so the signed shifts and masks are exact.
+__device__ __forceinline__ void texel(const Sky& sky, int face, int ui,
+                                      int vi, float& r, float& g, float& b) {
+  if (sky.kind != SKY_IMAGE) {
+    procedural_texel(face, ui, vi, sky.dim, sky.kind, r, g, b);
+    return;
+  }
+  const int t =
+      __ldg(sky.texels + ((size_t)(face * sky.dim + vi) * sky.dim + ui));
+  r = (float)((t >> 16) & 0xFF) / 255.0f;
+  g = (float)((t >> 8) & 0xFF) / 255.0f;
+  b = (float)(t & 0xFF) / 255.0f;
+}
+
+// The sky along d (render_pallas.py:559, :568; ttrt/render/skybox.py
+// sample_skybox): the nearest texel by the reference's int truncation, or
+// (bilinear) the four texels around (u, v), clamped within the face and
+// blended in sample_skybox(bilinear=True)'s lerp order, uncontracted.
+__device__ void sky_color(float dx, float dy, float dz, const Sky& sky,
+                          float& r, float& g, float& b) {
   int face;
   float u, v;
   sky_face_uv(dx, dy, dz, face, u, v);
+  const int dim = sky.dim;
   const float fdim = (float)dim;
-  if (!bilinear) {
+  if (!sky.bilinear) {
     int ui = min((int)((u + 0.5f) * fdim), dim - 1);
     int vi = min((int)((v + 0.5f) * fdim), dim - 1);
-    procedural_texel(face, ui, vi, dim, kind, r, g, b);
+    texel(sky, face, ui, vi, r, g, b);
     return;
   }
   const float fu = (u + 0.5f) * fdim - 0.5f;
@@ -255,10 +296,10 @@ __device__ void sky_color(float dx, float dy, float dz, int dim, int kind,
   const float wu = clamp01(fu - (float)u0);
   const float wv = clamp01(fv - (float)v0);
   float c00[3], c01[3], c10[3], c11[3];
-  procedural_texel(face, u0, v0, dim, kind, c00[0], c00[1], c00[2]);
-  procedural_texel(face, u1, v0, dim, kind, c01[0], c01[1], c01[2]);
-  procedural_texel(face, u0, v1, dim, kind, c10[0], c10[1], c10[2]);
-  procedural_texel(face, u1, v1, dim, kind, c11[0], c11[1], c11[2]);
+  texel(sky, face, u0, v0, c00[0], c00[1], c00[2]);
+  texel(sky, face, u1, v0, c01[0], c01[1], c01[2]);
+  texel(sky, face, u0, v1, c10[0], c10[1], c10[2]);
+  texel(sky, face, u1, v1, c11[0], c11[1], c11[2]);
   float out[3];
   for (int ch = 0; ch < 3; ++ch) {
     const float top = c00[ch] * (1.0f - wu) + c01[ch] * wu;
@@ -275,83 +316,114 @@ __device__ __forceinline__ float tri(float t) {
   return m < PI_F ? m / PI_F : 2.0f - m / PI_F;
 }
 
-// The frame loop of one pixel (column col, row row of the band; the band's
-// first row and first sample are cam[15] and cam[16]): n_samples AA rays
-// (TerminalRayTracer.c:978-1011) out of N, each through the masked bounce
-// loop (render_pallas.py:718) as a real loop that exits once the ray dies
-// (a dead ray changes no accumulator, so the exit is exact), the sky fold at
-// the final (frozen-on-death) direction and the contribution-total
-// normalization. Returns the in-order sum of the samples' colors and the
-// trace count (bounces + hits * n_lights). `bilinear` filters the sky.
-template <class Tracer>
-__device__ void render_pixel(const Tracer& tr, const Lights& L,
-                             const float* cam, int col_i, int row_i, int W,
-                             int H, int N, int n_samples, int bounce_limit,
-                             bool specular, bool subtract, int sky_kind,
-                             int sky_dim, bool bilinear, float& acc_r,
-                             float& acc_g, float& acc_b, int& traces) {
+// One AA sample of a pixel (column col_i, row row_i of the band; the
+// band's first row and first sample are cam[15] and cam[16]): its primary
+// ray (TerminalRayTracer.c:978-1011) and the masked bounce loop
+// (render_pallas.py:718) as a real loop that exits once the ray dies (a dead
+// ray changes no accumulator, so the exit is exact). Returns the shaded
+// color before the sky, the contribution total, the sky weight, the final
+// (frozen-on-death) direction and the bounces and hits. SHADE=false skips
+// the lighting and its shadow rays (JAX's _bounce_chain(shade=False),
+// render_pallas.py:725-729): nothing of the contribution chain, the sky
+// weight, the counts or the direction depends on them, so those equal the
+// shaded chain's bit for bit.
+struct Sample {
+  float pr, pg, pb, total, sky_w;
+  float dx, dy, dz;
+  int bounces, hits;
+};
+
+template <bool SHADE, class Tracer>
+__device__ Sample trace_sample(const Tracer& tr, const Lights& L,
+                               const float* cam, int col_i, int row_i, int k,
+                               int W, int H, int N, int bounce_limit,
+                               bool specular, bool subtract) {
   const float fW = (float)W, fH = (float)H, fN = (float)N;
   const float col = (float)col_i;
   const float row = (float)row_i + cam[15];
   const float szc = cam[12], sw = cam[13], sh = cam[14];
   const float pixel_w = sw / fW;
   const float pixel_h = sh / fH;
-  const float sx0 = (col / fW) * sw - sw / 2.0f;
-  const float sy0 = -((row / fH) * sh - sh / 2.0f);
-  const int n_lights = L.n_dl + L.n_pl;
+  const float kf = (float)k + cam[16];
+  const float jit_x = tri(TWO_PI_F * kf / fN) / 2.0f * pixel_w;
+  const float jit_y = tri(PI_F * kf / fN) / 2.0f * pixel_h;
+  const float sxv = (col / fW) * sw - sw / 2.0f + jit_x;
+  const float syv = -((row / fH) * sh - sh / 2.0f) + jit_y;
+  // reference quirk: direction = screen offset in basis - camera ORIGIN
+  float dx = sxv * cam[0] + syv * cam[3] + szc * cam[6] - cam[9];
+  float dy = sxv * cam[1] + syv * cam[4] + szc * cam[7] - cam[10];
+  float dz = sxv * cam[2] + syv * cam[5] + szc * cam[8] - cam[11];
+  normalize3(dx, dy, dz);
+  float ox = cam[9], oy = cam[10], oz = cam[11];
 
-  acc_r = 0.0f; acc_g = 0.0f; acc_b = 0.0f;
-  traces = 0;
-  for (int k = 0; k < n_samples; ++k) {
-    // primary ray (TerminalRayTracer.c:978-1011)
-    const float kf = (float)k + cam[16];
-    const float jit_x = tri(TWO_PI_F * kf / fN) / 2.0f * pixel_w;
-    const float jit_y = tri(PI_F * kf / fN) / 2.0f * pixel_h;
-    const float sxv = sx0 + jit_x;
-    const float syv = sy0 + jit_y;
-    // reference quirk: direction = screen offset in basis - camera ORIGIN
-    float dx = sxv * cam[0] + syv * cam[3] + szc * cam[6] - cam[9];
-    float dy = sxv * cam[1] + syv * cam[4] + szc * cam[7] - cam[10];
-    float dz = sxv * cam[2] + syv * cam[5] + szc * cam[8] - cam[11];
-    normalize3(dx, dy, dz);
-    float ox = cam[9], oy = cam[10], oz = cam[11];
-
-    float pr = 0.0f, pg = 0.0f, pb = 0.0f;
-    float contrib = 1.0f, total = 0.0f, sky_w = 0.0f;
-    for (int bounce = 0; bounce < bounce_limit; ++bounce) {
-      if (!(contrib > CONTRIBUTION_EPS_F)) break;
-      Hit h = tr.trace(ox, oy, oz, dx, dy, dz);
-      total = total + contrib;
-      traces += 1;
-      if (!h.is_hit) {
-        sky_w = contrib;
-        contrib = 0.0f;
-        break;
-      }
-      traces += n_lights;
+  Sample s;
+  s.pr = 0.0f; s.pg = 0.0f; s.pb = 0.0f;
+  s.total = 0.0f; s.sky_w = 0.0f;
+  s.bounces = 0; s.hits = 0;
+  float contrib = 1.0f;
+  for (int bounce = 0; bounce < bounce_limit; ++bounce) {
+    if (!(contrib > CONTRIBUTION_EPS_F)) break;
+    Hit h = tr.trace(ox, oy, oz, dx, dy, dz);
+    s.total = s.total + contrib;
+    s.bounces += 1;
+    if (!h.is_hit) {
+      s.sky_w = contrib;
+      contrib = 0.0f;
+      break;
+    }
+    s.hits += 1;
+    if (SHADE) {
       float lr, lg, lb;
       apply_lighting(tr, L, h, -dx, -dy, -dz, specular, lr, lg, lb);
       float hw = subtract ? contrib * (1.0f - h.refl) : contrib;
-      pr = fmaf(hw, lr, pr);
-      pg = fmaf(hw, lg, pg);
-      pb = fmaf(hw, lb, pb);
-      contrib = contrib * h.refl;
-      float dn = 2.0f * dot3(dx, dy, dz, h.nx, h.ny, h.nz);
-      float rdx = fmaf(-dn, h.nx, dx), rdy = fmaf(-dn, h.ny, dy),
-            rdz = fmaf(-dn, h.nz, dz);
-      normalize3(rdx, rdy, rdz);
-      dx = rdx; dy = rdy; dz = rdz;
-      ox = h.px; oy = h.py; oz = h.pz;
+      s.pr = fmaf(hw, lr, s.pr);
+      s.pg = fmaf(hw, lg, s.pg);
+      s.pb = fmaf(hw, lb, s.pb);
     }
-    // procedural sky fold at the final (frozen-on-death) direction
-    float skr, skg, skb;
-    sky_color(dx, dy, dz, sky_dim, sky_kind, bilinear, skr, skg, skb);
-    pr = pr + sky_w * skr;
-    pg = pg + sky_w * skg;
-    pb = pb + sky_w * skb;
+    contrib = contrib * h.refl;
+    float dn = 2.0f * dot3(dx, dy, dz, h.nx, h.ny, h.nz);
+    float rdx = fmaf(-dn, h.nx, dx), rdy = fmaf(-dn, h.ny, dy),
+          rdz = fmaf(-dn, h.nz, dz);
+    normalize3(rdx, rdy, rdz);
+    dx = rdx; dy = rdy; dz = rdz;
+    ox = h.px; oy = h.py; oz = h.pz;
+  }
+  s.dx = dx; s.dy = dy; s.dz = dz;
+  return s;
+}
+
+// The frame loop of one pixel: n_samples AA samples out of N
+// (trace_sample), each with the sky folded in at its final direction and
+// the contribution-total normalization. Returns the in-order sum of the
+// samples' colors and the pixel's bounces and hits (its traces are
+// bounces + hits * n_lights). A sample whose sky weight is 0 skips the sky:
+// pr + 0 * sky == pr exactly, so it loads no texel.
+template <class Tracer>
+__device__ void render_pixel(const Tracer& tr, const Lights& L,
+                             const float* cam, int col_i, int row_i, int W,
+                             int H, int N, int n_samples, int bounce_limit,
+                             bool specular, bool subtract, const Sky& sky,
+                             float& acc_r, float& acc_g, float& acc_b,
+                             int& bounces, int& hits) {
+  acc_r = 0.0f; acc_g = 0.0f; acc_b = 0.0f;
+  bounces = 0;
+  hits = 0;
+  for (int k = 0; k < n_samples; ++k) {
+    Sample s = trace_sample<true>(tr, L, cam, col_i, row_i, k, W, H, N,
+                                  bounce_limit, specular, subtract);
+    bounces += s.bounces;
+    hits += s.hits;
+    float pr = s.pr, pg = s.pg, pb = s.pb;
+    if (s.sky_w > 0.0f) {
+      float skr, skg, skb;
+      sky_color(s.dx, s.dy, s.dz, sky, skr, skg, skb);
+      pr = pr + s.sky_w * skr;
+      pg = pg + s.sky_w * skg;
+      pb = pb + s.sky_w * skb;
+    }
     if (!subtract) {
       // the subtract model's weights partition unity: no divide
-      const float inv_total = 1.0f / (total > 0.0f ? total : 1.0f);
+      const float inv_total = 1.0f / (s.total > 0.0f ? s.total : 1.0f);
       pr = pr * inv_total;
       pg = pg * inv_total;
       pb = pb * inv_total;

@@ -4,8 +4,11 @@
 //
 // mesh_fused_kernel replaces the TPU kernel
 // ttrt/kernels/mesh_fused.py::_fused_kernel (:194, launched at :1334 by
-// render_band_mesh_fused), procedural sky, nearest texels, with `specular`
-// and `energy_model="subtract"`. Its plain PyTorch version is
+// render_band_mesh_fused), procedural and textured (image-cubemap) skies,
+// nearest or bilinear, with `specular` and `energy_model="subtract"`; an
+// image sky's texels are loaded in the kernel (common.cuh::Sky) where the
+// TPU kernel deferred them to an epilogue gather (:1284, :1350-1379). Its
+// plain PyTorch version is
 // ttrt_torch/kernels/mesh_fused.py::render_band_mesh_fused_plain.
 // cluster_nearest_kernel replaces ttrt/kernels/mesh_pallas.py::_mesh_kernel
 // (:70, launched at :361 by cluster_nearest), modes "cull" and "dense". Its
@@ -320,8 +323,8 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
                   const float* __restrict__ dl_in, int n_dl,
                   const float* __restrict__ pl_in, int n_pl, MeshGeom g,
                   int W, int H, int N, int n_rows, int n_samples,
-                  int bounce_limit, int specular, int subtract, int sky_kind,
-                  int sky_dim, int bilinear, float scale,
+                  int bounce_limit, int specular, int subtract, Sky sky,
+                  float scale,
                   float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
   __shared__ float sbuf[LIGHT_FLOATS];
@@ -347,16 +350,16 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
   L.n_pl = n_pl;
 
   float acc_r, acc_g, acc_b;
-  int traces;
+  int bounces, hits;
   render_pixel(tr, L, sbuf, col, row, W, H, N, n_samples, bounce_limit,
-               specular != 0, subtract != 0, sky_kind, sky_dim, bilinear != 0,
-               acc_r, acc_g, acc_b, traces);
+               specular != 0, subtract != 0, sky, acc_r, acc_g, acc_b,
+               bounces, hits);
   const int n_pixels = W * n_rows;
   const int pix = row * W + col;
   out_rgb[pix] = acc_r * scale;
   out_rgb[n_pixels + pix] = acc_g * scale;
   out_rgb[2 * n_pixels + pix] = acc_b * scale;
-  out_count[pix] = traces;
+  out_count[pix] = bounces + hits * (n_dl + n_pl);
 }
 
 __global__ void __launch_bounds__(NEAREST_BLOCK)
@@ -405,8 +408,10 @@ extern "C" {
 // Render rows [cam[15], cam[15] + n_rows) and samples
 // [cam[16], cam[16] + n_samples) of a W x H x N frame on `stream`; writes
 // the (3, n_rows, W) sample sum times `scale` and the per-pixel trace
-// counts. Returns cudaGetLastError() (0 on success). The float4 tables must
-// be 16-byte aligned (fresh torch allocations are).
+// counts. `texels` is the image sky's (6, sky_dim, sky_dim) int32 table,
+// read only when sky_kind is SKY_IMAGE. Returns cudaGetLastError() (0 on
+// success). The float4 tables must be 16-byte aligned (fresh torch
+// allocations are).
 int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
                     const float* pl, int n_pl, const float* sph,
                     const float* sph_mat, const float* sph_spec,
@@ -416,13 +421,14 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
                     int kb_sph, int kb_tri, int W, int H, int N, int n_rows,
                     int n_samples, int bounce_limit, int specular,
                     int subtract, int sky_kind, int sky_dim, int bilinear,
-                    float scale, float* out_rgb, int* out_count,
-                    void* stream) {
+                    const int* texels, float scale, float* out_rgb,
+                    int* out_count, void* stream) {
   if (n_dl < 0 || n_dl > MAX_DLIGHTS || n_pl < 0 || n_pl > MAX_PLIGHTS ||
       W < 1 || H < 1 || N < 1 || n_rows < 1 || n_samples < 1 ||
-      kb_sph < 0 || kb_tri < 0 || sky_dim < 1 ||
-      (sky_kind != 0 && sky_kind != 1))
+      kb_sph < 0 || kb_tri < 0 || sky_dim < 1 || sky_kind < SKY_COLORS ||
+      sky_kind > SKY_IMAGE || (sky_kind == SKY_IMAGE && texels == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Sky sky{sky_kind, sky_dim, bilinear != 0, texels};
   const MeshGeom g =
       make_geom(sph, sph_mat, sph_spec, sph_id, tri, tri_nrm, tri_mat,
                 tri_spec, tri_id, qbox, order, kb_sph, kb_tri, true);
@@ -430,8 +436,7 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
   const dim3 grid((W + TILE_X - 1) / TILE_X, (n_rows + TILE_Y - 1) / TILE_Y);
   mesh_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, bounce_limit,
-      specular, subtract, sky_kind, sky_dim, bilinear, scale, out_rgb,
-      out_count);
+      specular, subtract, sky, scale, out_rgb, out_count);
   return (int)cudaGetLastError();
 }
 

@@ -116,7 +116,7 @@ pathtrace_kernel(const float* __restrict__ scene_buf, int n_sph, int n_al,
   const float col = (float)(pix % W);
   const float row = (float)(pix / W) + cam[15];
   const float szc = cam[12], sw = cam[13], sh = cam[14];
-  const bool bilin = bilinear != 0;
+  const Sky sky_map{sky_kind, sky_dim, bilinear != 0, nullptr};
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int nearest = 0, hits = 0, unblocked = 0;
@@ -208,7 +208,7 @@ pathtrace_kernel(const float* __restrict__ scene_buf, int n_sph, int n_al,
     }
     // the sky at the exit direction, weighted by the throughput at the miss
     float sky[3];
-    sky_color(dx, dy, dz, sky_dim, sky_kind, bilin, sky[0], sky[1], sky[2]);
+    sky_color(dx, dy, dz, sky_map, sky[0], sky[1], sky[2]);
     acc_r = acc_r + fmaf(sky_w[0], sky[0], rad[0]);
     acc_g = acc_g + fmaf(sky_w[1], sky[1], rad[1]);
     acc_b = acc_b + fmaf(sky_w[2], sky[2], rad[2]);
@@ -239,7 +239,8 @@ int ttrt_pathtrace(const float* scene_buf, int n_sph, int n_al, int W, int H,
                    int* out_count, void* stream) {
   if (n_sph < 0 || n_sph > MAX_SPHERES || n_al < 0 ||
       n_al > MAX_AREA_LIGHTS || W < 1 || H < 1 || N < 1 ||
-      bounce_limit < 0 || sky_dim < 1 || (sky_kind != 0 && sky_kind != 1) ||
+      bounce_limit < 0 || sky_dim < 1 ||
+      (sky_kind != SKY_COLORS && sky_kind != SKY_UV_CHECKER) ||
       (long long)W * H * N > 0x7FFFFFFFLL ||
       (long long)N * bounce_limit > 0x7FFF)
     return (int)cudaErrorInvalidValue;

@@ -1,24 +1,37 @@
-// Demo-scene render kernel for Hopper (sm_90a).
+// Demo-scene render kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernel ttrt/kernels/render_pallas.py::_render_kernel
-// (:894, launched at :1154), procedural-sky variant (nearest or bilinear),
-// with its flags `specular` and `energy_model="subtract"`. Its plain
-// PyTorch version is ttrt_torch/kernels/render.py::render_frame_plain,
-// which mirrors this math op for op.
+// render_kernel<false> replaces the TPU kernel
+// ttrt/kernels/render_pallas.py::_render_kernel (:894, launched at :1154):
+// its procedural-sky variant and its textured (image-cubemap) variant, each
+// nearest or bilinear, with the flags `specular` and
+// `energy_model="subtract"`. render_kernel<true> replaces
+// _render_kernel_acc (:612, launched at :1083), the pixel-rate layout:
+// the same frame, with each pixel's counts written as the 16|16 sums
+// bounces | hits << 16 of its samples (:711-715). sky_weight_kernel
+// replaces _sky_weight_kernel (:860, launched at :1181): the per-ray sky
+// weight of the bounce chain, with no lighting. Their plain PyTorch
+// versions are ttrt_torch/kernels/render.py::render_frame_plain,
+// render_frame_pixel_rate_plain and sky_weights_plain, which mirror this
+// math op for op.
 //
 // Design: one thread per pixel. Each thread loops over the AA samples
 // k = 0..N-1 in order and, per sample, over the bounces with a real loop
 // that exits when the ray dies (a dead ray changes no accumulator, so the
 // exit is exact). It sums the per-sample normalized colors and multiplies
 // by 1/N, which is the JAX package's reshape(N,H,W).sum(0) * (1/N)
-// (render_pallas.py:1350-1352). Outputs: (3, H, W) float32 and a per-pixel
-// int32 trace count (bounces + hits * n_lights, render_pallas.py:1050-1057),
-// 2.2 MB a frame at 480x280 against the 27 MB of per-ray outputs the TPU
-// kernel writes. The scene is a packed float32 buffer (the PackedScene
-// layout: cam 17, spheres 9 each, plane 16, directional lights 6 each,
-// point lights 7 each) that each block copies into shared memory once.
-// None of the TPU kernel's shape is kept: no unrolled bounce chain, no
-// (16, 128) tiles, no SMEM scalar tables.
+// (render_pallas.py:1350-1352) and its acc layout's in-order sum times 1/N
+// (:1097-1100). Outputs: (3, H, W) float32 and a per-pixel int32 count
+// (bounces + hits * n_lights, render_pallas.py:1050-1057, or the 16|16
+// sums), 2.2 MB a frame at 480x280 against the 27 MB of per-ray outputs the
+// TPU kernel writes; sky_weight_kernel writes the (N, H, W) float32 sky
+// weights, sample-major as the JAX rays. The scene is a packed float32
+// buffer (the PackedScene layout: cam 17, spheres 9 each, plane 16,
+// directional lights 6 each, point lights 7 each) that each block copies
+// into shared memory once; an image sky's texel table stays in device
+// memory (common.cuh::Sky). None of the TPU kernel's shape is kept: no
+// unrolled bounce chain, no (16, 128) tiles, no SMEM scalar tables, no
+// deferred sky gather, and no kernel split for the decoy sky (the Mosaic
+// scheduling cliff it insured against does not exist here).
 //
 // Floating point follows the JAX oracle: build with --fmad=false and
 // without --use_fast_math, so every product and sum rounds as written and
@@ -28,17 +41,19 @@
 // product of a*b + c*d); the kernel writes those fmaf calls out (dot3 and
 // the explicit fmaf calls here and in common.cuh), so the near-zero
 // hit-offset term c = |p - center|^2 - r^2 rounds as the oracle's does.
-// Ray generation
-// (but for its normalize) and the sky fold stay uncontracted, as the oracle
-// computes them op by op.
+// Ray generation (but for its normalize), the texel unpacking, the bilinear
+// lerps and the sky fold stay uncontracted, as the oracle computes them op
+// by op.
 //
-// What bounds it on this card, from arithmetic (not measured): 1,344,000
-// rays a frame at 480x280x10 and about 3.4 traces per ray (the JAX oracle
-// counts 3517 traces for 1024 rays at 32x16x2) is a few GFLOP a frame,
-// microseconds at the H100's FP32 rate. So expect the kernel to be bound by
-// latency and warp divergence (rays of one warp die at different bounces),
-// and the frame by the ANSI encode, the 3,360,286-byte copy to the host and
-// write(2).
+// What bounds it on this card: the operations. A frame at 480x280x10 and
+// t = 1.5 makes 5,249,350 traces, each at least a shadow trace's 128 FP32
+// operations, 0.0100 ms at the FP32 peak; its bytes (the scene, a
+// 1,572,864-byte texel table at dim 256, 2.2 MB of output) take about a
+// tenth of that. Measured on an NVIDIA H100 80GB HBM3 at 700 W: about
+// 0.23 ms for the kernel alone (PERF.md), so latency and warp divergence
+// (rays of one warp die at different bounces) bound it, and the frame is
+// bound by the host (the ANSI encode, the 3,360,286-byte copy to the host
+// and write(2)).
 
 #include "common.cuh"
 
@@ -49,49 +64,91 @@ constexpr int MAX_SCENE_FLOATS =
     DLIGHT_FLOATS * MAX_DLIGHTS + PLIGHT_FLOATS * MAX_PLIGHTS;
 constexpr int BLOCK = 128;
 
-__global__ void __launch_bounds__(BLOCK)
-render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
-              int n_pl, int W, int H, int N, int bounce_limit, int specular,
-              int subtract, int sky_kind, int sky_dim, int bilinear,
-              float* __restrict__ out_rgb, int* __restrict__ out_count) {
-  __shared__ float sbuf[MAX_SCENE_FLOATS];
+// Copy the packed scene into shared memory `sbuf` (every thread of the
+// block takes part) and point the tracer and the lights into it.
+__device__ __forceinline__ void load_scene(const float* __restrict__ scene_buf,
+                                           int n_sph, int n_dl, int n_pl,
+                                           float* sbuf, DemoTracer& tr,
+                                           Lights& L) {
   const int n_floats = CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS +
                        DLIGHT_FLOATS * n_dl + PLIGHT_FLOATS * n_pl;
   for (int i = threadIdx.x; i < n_floats; i += blockDim.x)
     sbuf[i] = scene_buf[i];
   __syncthreads();
+  tr.sph = sbuf + CAM_FLOATS;
+  tr.plane = tr.sph + SPHERE_FLOATS * n_sph;
+  tr.n_sph = n_sph;
+  L.dl = tr.plane + PLANE_FLOATS;
+  L.pl = L.dl + DLIGHT_FLOATS * n_dl;
+  L.n_dl = n_dl;
+  L.n_pl = n_pl;
+}
+
+// PIXEL_RATE: out_count holds the pixel's 16|16 sums (the acc layout)
+// instead of its trace count.
+template <bool PIXEL_RATE>
+__global__ void __launch_bounds__(BLOCK)
+render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
+              int n_pl, int W, int H, int N, int bounce_limit, int specular,
+              int subtract, Sky sky, float* __restrict__ out_rgb,
+              int* __restrict__ out_count) {
+  __shared__ float sbuf[MAX_SCENE_FLOATS];
+  DemoTracer tr;
+  Lights L;
+  load_scene(scene_buf, n_sph, n_dl, n_pl, sbuf, tr, L);
 
   const int n_pixels = W * H;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= n_pixels) return;
 
-  DemoTracer tr;
-  tr.sph = sbuf + CAM_FLOATS;
-  tr.plane = tr.sph + SPHERE_FLOATS * n_sph;
-  tr.n_sph = n_sph;
-  Lights L;
-  L.dl = tr.plane + PLANE_FLOATS;
-  L.pl = L.dl + DLIGHT_FLOATS * n_dl;
-  L.n_dl = n_dl;
-  L.n_pl = n_pl;
-
   float acc_r, acc_g, acc_b;
-  int traces;
+  int bounces, hits;
   render_pixel(tr, L, sbuf, pix % W, pix / W, W, H, N, N, bounce_limit,
-               specular != 0, subtract != 0, sky_kind, sky_dim, bilinear != 0,
-               acc_r, acc_g, acc_b, traces);
+               specular != 0, subtract != 0, sky, acc_r, acc_g, acc_b,
+               bounces, hits);
   const float inv_n = (float)(1.0 / (double)N);
   out_rgb[pix] = acc_r * inv_n;
   out_rgb[n_pixels + pix] = acc_g * inv_n;
   out_rgb[2 * n_pixels + pix] = acc_b * inv_n;
-  out_count[pix] = traces;
+  // hits may reach 0xFFFF (check_pixel_rate): shift it unsigned, so bit 31
+  // is set without a signed overflow
+  out_count[pix] =
+      PIXEL_RATE ? (int)((unsigned)bounces | ((unsigned)hits << 16))
+                 : bounces + hits * (n_dl + n_pl);
+}
+
+// The sky weight of every ray, out_w[k * H * W + pixel]: the bounce chain
+// of render_kernel with the lighting compiled out (trace_sample<false>).
+__global__ void __launch_bounds__(BLOCK)
+sky_weight_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
+                  int n_pl, int W, int H, int N, int bounce_limit,
+                  float* __restrict__ out_w) {
+  __shared__ float sbuf[MAX_SCENE_FLOATS];
+  DemoTracer tr;
+  Lights L;
+  load_scene(scene_buf, n_sph, n_dl, n_pl, sbuf, tr, L);
+
+  const int n_pixels = W * H;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= n_pixels) return;
+  for (int k = 0; k < N; ++k) {
+    const Sample s = trace_sample<false>(tr, L, sbuf, pix % W, pix / W, k, W,
+                                         H, N, bounce_limit, false, false);
+    out_w[k * n_pixels + pix] = s.sky_w;
+  }
+}
+
+bool scene_ok(int n_sph, int n_dl, int n_pl, int W, int H, int N) {
+  return n_sph >= 0 && n_sph <= MAX_SPHERES && n_dl >= 0 &&
+         n_dl <= MAX_DLIGHTS && n_pl >= 0 && n_pl <= MAX_PLIGHTS && W >= 1 &&
+         H >= 1 && N >= 1 && (long long)W * H * N <= 0x7FFFFFFFLL;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest sphere, directional-light and point-light counts the kernel's
+// Largest sphere, directional-light and point-light counts the kernels'
 // shared-memory scene buffer holds.
 void ttrt_render_limits(int* out) {
   out[0] = MAX_SPHERES;
@@ -99,21 +156,44 @@ void ttrt_render_limits(int* out) {
   out[2] = MAX_PLIGHTS;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). The
-// caller allocates `out_rgb` (3*H*W floats) and `out_count` (H*W ints).
+// Launch render_kernel on `stream`; returns cudaGetLastError() (0 on
+// success). `texels` is the image sky's (6, sky_dim, sky_dim) int32 table
+// (read only when sky_kind is SKY_IMAGE); `pixel_rate` selects the 16|16
+// counts. The caller allocates `out_rgb` (3*H*W floats) and `out_count`
+// (H*W ints).
 int ttrt_render(const float* scene_buf, int n_sph, int n_dl, int n_pl, int W,
                 int H, int N, int bounce_limit, int specular, int subtract,
-                int sky_kind, int sky_dim, int bilinear, float* out_rgb,
-                int* out_count, void* stream) {
-  if (n_sph < 0 || n_sph > MAX_SPHERES || n_dl < 0 || n_dl > MAX_DLIGHTS ||
-      n_pl < 0 || n_pl > MAX_PLIGHTS || W < 1 || H < 1 || N < 1 ||
-      sky_dim < 1 || (sky_kind != 0 && sky_kind != 1))
+                int sky_kind, int sky_dim, int bilinear, const int* texels,
+                int pixel_rate, float* out_rgb, int* out_count,
+                void* stream) {
+  if (!scene_ok(n_sph, n_dl, n_pl, W, H, N) || sky_dim < 1 ||
+      sky_kind < SKY_COLORS || sky_kind > SKY_IMAGE ||
+      (sky_kind == SKY_IMAGE && texels == nullptr) ||
+      (pixel_rate && (long long)N * bounce_limit > 0xFFFF))
     return (int)cudaErrorInvalidValue;
-  const int n_pixels = W * H;
-  const int grid = (n_pixels + BLOCK - 1) / BLOCK;
-  render_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular, subtract,
-      sky_kind, sky_dim, bilinear, out_rgb, out_count);
+  const Sky sky{sky_kind, sky_dim, bilinear != 0, texels};
+  const int grid = (W * H + BLOCK - 1) / BLOCK;
+  if (pixel_rate)
+    render_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular,
+        subtract, sky, out_rgb, out_count);
+  else
+    render_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular,
+        subtract, sky, out_rgb, out_count);
+  return (int)cudaGetLastError();
+}
+
+// Launch sky_weight_kernel on `stream`; returns cudaGetLastError(). The
+// caller allocates `out_w` (N*H*W floats).
+int ttrt_sky_weights(const float* scene_buf, int n_sph, int n_dl, int n_pl,
+                     int W, int H, int N, int bounce_limit, float* out_w,
+                     void* stream) {
+  if (!scene_ok(n_sph, n_dl, n_pl, W, H, N))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (W * H + BLOCK - 1) / BLOCK;
+  sky_weight_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w);
   return (int)cudaGetLastError();
 }
 

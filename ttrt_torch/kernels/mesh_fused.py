@@ -3,7 +3,8 @@ and its plain PyTorch version (port of ``ttrt/kernels/mesh_fused.py``).
 
 One launch renders a band of rows x AA samples of a ``MeshScene`` frame:
 primary rays, every bounce, the shadow ray of every light, the shading
-from the materials in the cluster pack, and the procedural sky.
+from the materials in the cluster pack, and the sky (a procedural pattern
+or an image cubemap, nearest or bilinear).
 ``render_band_mesh_fused`` dispatches on the device of the scene: CPU
 tensors go through ``render_band_mesh_fused_plain``, CUDA tensors through
 ``render_band_mesh_fused_cuda``, which launches ``csrc/mesh.cu`` or raises.
@@ -28,12 +29,12 @@ from typing import Optional, Tuple
 import torch
 
 from ttrt_torch.config import ConfigError, RenderConfig
-from ttrt_torch.kernels.render import (SKY_KINDS, _bounce_chain, _F32_EPSILON,
+from ttrt_torch.kernels.render import (_bounce_chain, _F32_EPSILON,
                                        _finish_frame, _fma, _gen_primary_rays,
                                        _normalize3, _TraceOut, _tuples,
                                        DLIGHT_FLOATS, PLIGHT_FLOATS,
                                        check_sky, pack_camera, pack_dlights,
-                                       pack_plights)
+                                       pack_plights, sky_kind, sky_table)
 from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.dense import (_tri_t, chunks, nearest_arrays,
                                    sphere_blocks)
@@ -47,8 +48,9 @@ MAX_PLIGHTS = 8
 def check_supported(scene, cfg: RenderConfig) -> None:
     """The gates of ``render_band_mesh_fused`` (mesh_fused.py:1431-1443)
     that this port keeps: float32, bounce_limit <= 16 (the per-ray trace
-    counts pack 5-bit fields), a cluster pack, a procedural sky (nearest
-    or bilinear)."""
+    counts pack 5-bit fields), a cluster pack, and a sky the kernels take
+    (``render.check_sky``: a procedural pattern or an image cubemap of any
+    size, nearest or bilinear)."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the fused mesh kernel is float32-only")
     if cfg.bounce_limit > 16:
@@ -219,6 +221,7 @@ def render_band_mesh_fused_cuda(
                       sample_offset).contiguous()
     dl = pack_dlights(scene.directional_lights, torch.float32).contiguous()
     pl = pack_plights(scene.point_lights, torch.float32).contiguous()
+    texels = sky_table(scene.skybox, dev)
     W = cfg.width
     out = torch.empty((3, n_rows, W), dtype=torch.float32, device=dev)
     counts = torch.empty((n_rows, W), dtype=torch.int32, device=dev)
@@ -234,9 +237,8 @@ def render_band_mesh_fused_cuda(
         tab.kb_sph, tab.kb_tri, W, cfg.height, cfg.rays_per_pixel, n_rows,
         n_samples, cfg.bounce_limit, int(cfg.specular),
         int(cfg.energy_model == "subtract"),
-        SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        int(cfg.skybox_bilinear), scale, out.data_ptr(), counts.data_ptr(),
-        stream)
+        sky_kind(scene.skybox), scene.skybox.dim, int(cfg.skybox_bilinear),
+        texels.data_ptr(), scale, out.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused mesh kernel launch failed: CUDA error {rc}")
     render_band_mesh_fused_cuda.launches += 1

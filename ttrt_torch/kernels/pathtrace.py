@@ -47,7 +47,7 @@ from ttrt_torch.config import ConfigError, RenderConfig, constants
 from ttrt_torch.kernels.render import (PLANE_FLOATS, SKY_KINDS, SPHERE_FLOATS,
                                        _dot3, _fma, _normalize3,
                                        _shadow_any_hit, _shadow_oc_terms,
-                                       _trace, _tuples, check_sky,
+                                       _trace, _tuples,
                                        pack_scene, sky_color)
 from ttrt_torch.scene import Scene
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
@@ -125,14 +125,17 @@ def pack_area_lights(lights, dtype=torch.float32) -> torch.Tensor:
 def check_supported(scene, lights, cfg: RenderConfig) -> None:
     """The gates of ``pathtrace_frame_pallas`` (pathtrace_pallas.py:
     345-360) and of the JAX app's kernel route (ttrt/app.py:73-80):
-    float32, a procedural sky, the demo ``Scene``, bounce_limit <= 10,
-    at most 10 area lights."""
+    float32, a procedural sky (the JAX kernel's only kind,
+    pathtrace_pallas.py:39-43), the demo ``Scene``, bounce_limit <= 10, at
+    most 10 area lights."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the path-tracing kernel is float32-only")
     if type(scene) is not Scene:
         raise ConfigError("the path-tracing kernel traces the demo scene "
                           "only")
-    check_sky(scene)
+    if scene.skybox.procedural not in SKY_KINDS:
+        raise ConfigError("the path-tracing kernel takes a procedural sky "
+                          f"({', '.join(SKY_KINDS)})")
     if cfg.bounce_limit > MAX_BOUNCES:
         raise ConfigError(
             f"the path-tracing kernel supports bounce_limit <= {MAX_BOUNCES}")

@@ -1,10 +1,17 @@
-"""The demo-scene render kernel: scene packing, the CUDA wrapper, and its
-plain PyTorch version (port of ``ttrt/kernels/render_pallas.py``).
+"""The demo-scene render kernels: scene packing, the CUDA wrappers, and
+their plain PyTorch versions (port of ``ttrt/kernels/render_pallas.py``).
 
-``render_frame`` dispatches on the device of the scene's tensors: CPU
-tensors go through ``render_frame_plain``; CUDA tensors go through
-``render_frame_cuda``, which launches the hand-written kernel in
-``csrc/render.cu`` or raises. There is no fallback from one to the other.
+Three entry points, each dispatching on the device of the scene's tensors
+(CPU tensors go through the plain version; CUDA tensors through the
+wrapper, which launches its hand-written kernel in ``csrc/render.cu`` or
+raises; there is no fallback from one to the other):
+
+- ``render_frame``: the frame, under a procedural sky or an image cubemap,
+  nearest or bilinear (``_render_kernel``, render_pallas.py:894);
+- ``render_frame_pixel_rate``: the same frame with its counts summed per
+  pixel in 16|16 fields (``_render_kernel_acc``, :612);
+- ``sky_weights``: the per-ray sky weight of the bounce chain, with no
+  lighting (``_sky_weight_kernel``, :860).
 
 ``render_frame_plain`` mirrors the kernel's math op for op, as the JAX
 kernel ``_render_kernel`` (render_pallas.py:894) computes it: the same
@@ -36,7 +43,11 @@ of a few float32 ulps, changes sign differently from the oracle and flips
 shadows on pixels that no knife-edge class covers. Ray generation (but
 for its normalize) and the sky fold stay uncontracted, as the oracle
 computes them op by op; their last-bit differences are direction noise
-that the knife-edge classes cover.
+that the knife-edge classes cover. So do the image sky's texel unpacking
+(a true division by 255) and its bilinear lerps: the oracle computes its
+sky eagerly, op by op (JAX's textured Pallas path folds the sky in a jitted
+epilogue, where XLA:CPU multiplies by 1/255 and contracts the lerps and the
+fold, up to an ulp away from the oracle).
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ttrt_torch.config import ConfigError, RenderConfig, constants
-from ttrt_torch.render.skybox import CUBEMAP_AXES, U_AXIS, V_AXIS
+from ttrt_torch.render.skybox import CUBEMAP_AXES, U_AXIS, V_AXIS, _unpack
 from ttrt_torch.scene import Scene
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
 
@@ -57,8 +68,10 @@ PLANE_FLOATS = 16
 DLIGHT_FLOATS = 6
 PLIGHT_FLOATS = 7
 
-# procedural skies the kernel evaluates in place of a texel fetch
+# procedural skies the kernels evaluate in place of a texel fetch, and the
+# kind of an image cubemap, whose texels the kernels load
 SKY_KINDS = {"colors": 0, "uv_checker": 1}
+SKY_IMAGE = 2
 
 _F32_MAX = torch.finfo(torch.float32).max
 # EPSILON rounded to float32 once, as JAX's weak-typed scalar is (_fma
@@ -144,25 +157,77 @@ def pack_scene(scene: Scene, dtype, row_offset: float = 0.0,
     )
 
 
+def sky_kind(skybox) -> int:
+    """The kernels' sky kind: a procedural pattern's, or SKY_IMAGE."""
+    if skybox.procedural is None:
+        return SKY_IMAGE
+    return SKY_KINDS[skybox.procedural]
+
+
 def check_sky(scene) -> None:
-    """The kernels evaluate a procedural sky in place (nearest or
-    bilinear); image cubemaps are not ported to them yet."""
-    if scene.skybox.procedural not in SKY_KINDS:
-        raise ConfigError(
-            "image cubemaps are not yet ported; use a procedural sky "
-            f"({', '.join(SKY_KINDS)})"
-        )
+    """The kernels evaluate a procedural sky in place and load an image
+    cubemap's texels, nearest or bilinear, at any ``dim``: JAX's cap of
+    dim <= 591 (render_pallas.py:1315-1325) comes from the texel index it
+    packs into bits 10..30 of an int32 count stream, which the port does
+    not. A tag that names no pattern is refused."""
+    tag = scene.skybox.procedural
+    if tag is not None and tag not in SKY_KINDS:
+        raise ConfigError(f"unknown procedural sky {tag!r} (the kernels "
+                          f"evaluate {', '.join(SKY_KINDS)})")
 
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """The gates of ``render_frame_pallas`` (render_pallas.py:1292-1325)
-    that this port keeps: float32, a procedural sky (nearest or bilinear),
-    bounce_limit <= 16 (the per-ray trace counts pack 5-bit fields)."""
+    that this port keeps: float32, bounce_limit <= 16 (the per-ray trace
+    counts pack 5-bit fields), and a sky the kernels take."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the render kernel is float32-only")
     check_sky(scene)
     if cfg.bounce_limit > 16:
         raise ConfigError("the render kernel supports bounce_limit <= 16")
+
+
+def check_ghost_sky(scene: Scene, cfg: RenderConfig, ghost_sky) -> None:
+    """JAX's checks of ``render_frame_pallas(..., ghost_sky=...)``: ignored
+    under a procedural sky (render_pallas.py:1043); on an image cubemap,
+    refused with ``--bilinear`` (:1294-1298) and unless it is 'colors'
+    (:1044-1047).
+
+    No renderer of the port takes ``ghost_sky``. JAX's 'colors' split
+    renders an image sky with a decoy procedural sky plus a second,
+    lighting-free kernel for the sky weights (``_sky_weight_kernel``,
+    ported as ``sky_weights``); its frame is the plain textured frame to
+    1-2 ulp before quantization (render_pallas.py:972-976), and it insured
+    against a Mosaic scheduling cliff that has no counterpart on the GPU,
+    so the textured kernel serves every image sky. This validator keeps
+    the option's contract for a caller that carries it over."""
+    if scene.skybox.procedural is not None:
+        return
+    if cfg.skybox_bilinear and ghost_sky:
+        raise ConfigError("ghost decoy sky does not serve --bilinear")
+    if ghost_sky is not None and ghost_sky != "colors":
+        raise ConfigError(
+            f"ghost decoy sky must be 'colors', got {ghost_sky!r}")
+
+
+# a pixel's 16|16 count sums hold at most 0xFFFF bounces
+MAX_PIXEL_BOUNCES = 0xFFFF
+
+
+def check_pixel_rate(scene: Scene, cfg: RenderConfig) -> None:
+    """The gates of the pixel-rate layout: ``check_supported``'s, a
+    procedural sky, as JAX's ``_render_kernel_acc`` takes
+    (render_pallas.py:624-631), and spp x bounces <= 0xFFFF, so that a
+    pixel's 16-bit bounce and hit sums cannot overflow."""
+    check_supported(scene, cfg)
+    if scene.skybox.procedural is None:
+        raise ConfigError("the pixel-rate layout takes a procedural sky "
+                          f"({', '.join(SKY_KINDS)})")
+    if cfg.rays_per_pixel * cfg.bounce_limit > MAX_PIXEL_BOUNCES:
+        raise ConfigError(
+            f"the pixel-rate layout takes spp x bounces <= "
+            f"{MAX_PIXEL_BOUNCES}; got {cfg.rays_per_pixel} x "
+            f"{cfg.bounce_limit}")
 
 
 # ---------------------------------------------------------------------------
@@ -466,15 +531,24 @@ def _procedural_texel(face, ui, vi, dim: int, kind: str):
     return q(r), q(g), q(b)
 
 
-def _sky_color_procedural(dx, dy, dz, dim: int, kind: str):
-    face, ui, vi = _sky_face_uv(dx, dy, dz, dim)
-    return _procedural_texel(face, ui, vi, dim, kind)
+def _image_texel(flat: torch.Tensor, face, ui, vi, dim: int):
+    """Texel (face, row vi, column ui) of an image cubemap's packed table
+    as float32 (r, g, b): the JAX oracle's eager gather and ``_unpack``, a
+    true division by 255 (render/skybox.py)."""
+    c = _unpack(flat[((face.long() * dim + vi) * dim + ui)], torch.float32)
+    return c.x, c.y, c.z
 
 
-def _sky_color_procedural_bilinear(dx, dy, dz, dim: int, kind: str):
-    """The 4-tap bilinear procedural sky (render_pallas.py:568): the
-    pattern at the four texel centers around (u, v), clamped within the
-    face, blended in ``sample_skybox(bilinear=True)``'s lerp order."""
+def _sky_nearest(dx, dy, dz, texel, dim: int):
+    """The sky along (dx, dy, dz) at the nearest texel; ``texel(face, ui,
+    vi)`` gives its (r, g, b)."""
+    return texel(*_sky_face_uv(dx, dy, dz, dim))
+
+
+def _sky_bilinear(dx, dy, dz, texel, dim: int):
+    """The 4-tap bilinear sky (render_pallas.py:568, :485-502): the texels
+    at the four texel centers around (u, v), clamped within the face,
+    blended in ``sample_skybox(bilinear=True)``'s lerp order."""
     face, u, v = _sky_face_uv_cont(dx, dy, dz)
     fu = (u + 0.5) * dim - 0.5
     fv = (v + 0.5) * dim - 0.5
@@ -484,10 +558,10 @@ def _sky_color_procedural_bilinear(dx, dy, dz, dim: int, kind: str):
     v1 = torch.clamp_max(v0 + 1, dim - 1)
     wu = torch.clamp(fu - u0.to(torch.float32), 0.0, 1.0)
     wv = torch.clamp(fv - v0.to(torch.float32), 0.0, 1.0)
-    c00 = _procedural_texel(face, u0, v0, dim, kind)
-    c01 = _procedural_texel(face, u1, v0, dim, kind)
-    c10 = _procedural_texel(face, u0, v1, dim, kind)
-    c11 = _procedural_texel(face, u1, v1, dim, kind)
+    c00 = texel(face, u0, v0)
+    c01 = texel(face, u1, v0)
+    c10 = texel(face, u0, v1)
+    c11 = texel(face, u1, v1)
     out = []
     for ch in range(3):
         top = c00[ch] * (1.0 - wu) + c01[ch] * wu
@@ -497,14 +571,22 @@ def _sky_color_procedural_bilinear(dx, dy, dz, dim: int, kind: str):
 
 
 def sky_color(dx, dy, dz, skybox, bilinear: bool):
-    """The procedural sky along (dx, dy, dz), nearest or bilinear."""
-    fn = _sky_color_procedural_bilinear if bilinear else _sky_color_procedural
-    return fn(dx, dy, dz, skybox.dim, skybox.procedural)
+    """The sky along (dx, dy, dz), nearest or bilinear: a procedural
+    pattern evaluated in place, or an image cubemap's texels gathered."""
+    dim = skybox.dim
+    if skybox.procedural is None:
+        flat = skybox.packed.reshape(-1)
+        texel = lambda f, u, v: _image_texel(flat, f, u, v, dim)  # noqa: E731
+    else:
+        texel = lambda f, u, v: _procedural_texel(  # noqa: E731
+            f, u, v, dim, skybox.procedural)
+    return (_sky_bilinear if bilinear else _sky_nearest)(dx, dy, dz, texel,
+                                                         dim)
 
 
 def _bounce_chain(ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals,
                   pl_vals, bounce_limit: int, specular: bool,
-                  energy_subtract: bool):
+                  energy_subtract: bool, shade: bool = True):
     """The bounce loop (project_scene, TerminalRayTracer.c:1012-1057) of
     the JAX kernel's ``_bounce_chain`` (render_pallas.py:718).
     ``trace(o, d)`` is the nearest-hit trace (a ``_TraceOut``) and
@@ -513,7 +595,10 @@ def _bounce_chain(ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals,
     weight in sky_w and zeroes contrib; o/d freeze on the death iteration,
     so the final d is the sky direction; counts pack bounces | hits<<5 per
     ray. Each bounce computes on the live rays only; a dead ray's state
-    does not change, so this equals the JAX kernel's masked loop."""
+    does not change, so this equals the JAX kernel's masked loop.
+    ``shade=False`` skips the lighting and its shadow rays (pr, pg, pb stay
+    0): lighting feeds none of the other outputs, so they equal the shaded
+    chain's bit for bit (render_pallas.py:725-729)."""
     zero = torch.zeros_like(dx)
     pr, pg, pb = zero, zero, zero
     contrib = torch.ones_like(dx)
@@ -529,21 +614,22 @@ def _bounce_chain(ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals,
         lox, loy, loz, ldx, ldy, ldz, lcon = at(ox, oy, oz, dx, dy, dz,
                                                  contrib)
         hit = trace(lox, loy, loz, ldx, ldy, ldz)
-        lr, lg, lb = _apply_lighting(
-            hit.px, hit.py, hit.pz, hit.nx, hit.ny, hit.nz,
-            hit.cr, hit.cg, hit.cb, dl_vals, pl_vals,
-            shadow_test(hit.px, hit.py, hit.pz),
-            view=(-ldx, -ldy, -ldz) if specular else None,
-            mspec=hit.spec if specular else None,
-        )
-        if energy_subtract:
-            hw = torch.where(hit.is_hit, lcon * (1.0 - hit.refl), 0.0)
-        else:
-            hw = torch.where(hit.is_hit, lcon, 0.0)
-        lpr, lpg, lpb = at(pr, pg, pb)
-        pr = pr.index_put((live,), _fma(hw, lr, lpr))
-        pg = pg.index_put((live,), _fma(hw, lg, lpg))
-        pb = pb.index_put((live,), _fma(hw, lb, lpb))
+        if shade:
+            lr, lg, lb = _apply_lighting(
+                hit.px, hit.py, hit.pz, hit.nx, hit.ny, hit.nz,
+                hit.cr, hit.cg, hit.cb, dl_vals, pl_vals,
+                shadow_test(hit.px, hit.py, hit.pz),
+                view=(-ldx, -ldy, -ldz) if specular else None,
+                mspec=hit.spec if specular else None,
+            )
+            if energy_subtract:
+                hw = torch.where(hit.is_hit, lcon * (1.0 - hit.refl), 0.0)
+            else:
+                hw = torch.where(hit.is_hit, lcon, 0.0)
+            lpr, lpg, lpb = at(pr, pg, pb)
+            pr = pr.index_put((live,), _fma(hw, lr, lpr))
+            pg = pg.index_put((live,), _fma(hw, lg, lpg))
+            pb = pb.index_put((live,), _fma(hw, lb, lpb))
         total = total.index_put((live,), total[live] + lcon)
         sky_w = sky_w.index_put(
             (live,), torch.where(hit.is_hit, sky_w[live], lcon))
@@ -627,6 +713,7 @@ def _finish_frame(pr, pg, pb, total, sky_w, count, dx, dy, dz, scene,
     ``scale``, and the trace count (bounces + hits x n_lights). Returns
     ((n_rows, W) Vec3, count)."""
     skr, skg, skb = sky_color(dx, dy, dz, scene.skybox, cfg.skybox_bilinear)
+    # the oracle's fold, uncontracted (ttrt/render/integrator.py:221-228)
     pr = pr + sky_w * skr
     pg = pg + sky_w * skg
     pb = pb + sky_w * skb
@@ -650,15 +737,9 @@ def _finish_frame(pr, pg, pb, total, sky_w, count, dx, dy, dz, scene,
             traces.sum(dtype=torch.int64))
 
 
-def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
-                       count_rays: bool = True
-                       ) -> Tuple[Vec3, Optional[torch.Tensor]]:
-    """The kernel's math in plain PyTorch on whole ray batches: returns the
-    (H, W) framebuffer and the frame's trace count (bounces + hits x
-    n_lights, render_pallas.py:1050-1057), or None for the count when
-    ``count_rays`` is False."""
-    check_supported(scene, cfg)
-    render_frame_plain.launches += 1
+def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True):
+    """The demo frame's rays through ``_bounce_chain``, sample-major:
+    returns its outputs and the scene's light count."""
     packed = pack_scene(scene, torch.float32)
     sph_vals = _tuples(packed.spheres, SPHERE_FLOATS)
     plane_vals = tuple(packed.plane[i] for i in range(PLANE_FLOATS))
@@ -675,23 +756,152 @@ def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
             px, py, pz, lx, ly, lz, tmax, oc_terms, plane_vals)
 
     ox, oy, oz, dx, dy, dz = _gen_primary_rays(packed.cam, cfg)
-    pr, pg, pb, total, sky_w, count, dx, dy, dz = _bounce_chain(
+    chain = _bounce_chain(
         ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals, pl_vals,
         cfg.bounce_limit, cfg.specular, cfg.energy_model == "subtract",
-    )
+        shade)
+    return chain, len(dl_vals) + len(pl_vals)
+
+
+def _demo_frame(scene: Scene, cfg: RenderConfig):
+    """The demo frame in plain PyTorch: the (H, W) framebuffer, its trace
+    count and the per-ray packed counts (bounces | hits << 5)."""
+    chain, n_lights = _demo_chain(scene, cfg)
     fb, traces = _finish_frame(
-        pr, pg, pb, total, sky_w, count, dx, dy, dz, scene, cfg, cfg.height,
-        cfg.rays_per_pixel, 1.0 / cfg.rays_per_pixel,
-        len(dl_vals) + len(pl_vals))
+        *chain, scene, cfg, cfg.height, cfg.rays_per_pixel,
+        1.0 / cfg.rays_per_pixel, n_lights)
+    return fb, traces, chain[5]
+
+
+def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
+                       count_rays: bool = True
+                       ) -> Tuple[Vec3, Optional[torch.Tensor]]:
+    """The kernel's math in plain PyTorch on whole ray batches: returns the
+    (H, W) framebuffer and the frame's trace count (bounces + hits x
+    n_lights, render_pallas.py:1050-1057), or None for the count when
+    ``count_rays`` is False."""
+    check_supported(scene, cfg)
+    render_frame_plain.launches += 1
+    fb, traces, _ = _demo_frame(scene, cfg)
     return fb, traces if count_rays else None
 
 
 render_frame_plain.launches = 0
 
 
+def traces_from_pixel_sums(sums: torch.Tensor, n_lights: int
+                           ) -> torch.Tensor:
+    """The frame's trace count from per-pixel 16|16 sums (bounces | hits
+    << 16, render_pallas.py:1101-1107): bounces + hits x n_lights. The
+    int32 sums set bit 31 once a pixel's hits reach 0x8000, so the hit
+    field is masked after the shift, as JAX masks it (:1104)."""
+    sums = sums.to(torch.int64)
+    return ((sums & 0xFFFF) + ((sums >> 16) & 0xFFFF) * n_lights).sum()
+
+
+def render_frame_pixel_rate_plain(scene: Scene, cfg: RenderConfig
+                                  ) -> Tuple[Vec3, torch.Tensor]:
+    """What ``_render_rays_pallas(..., accumulate=True)`` computes
+    (render_pallas.py:1059-1107), in plain PyTorch: the per-pixel sample
+    average (each sample finished, the samples summed in order from zero,
+    times float32(1/N): ``render_frame_plain``'s frame, bit for bit) and
+    the trace count decoded from each pixel's sums of the per-sample
+    fields repacked into 16|16 (:711-715)."""
+    check_pixel_rate(scene, cfg)
+    render_frame_pixel_rate_plain.launches += 1
+    fb, _, count = _demo_frame(scene, cfg)
+    fields = ((count & 0x1F) | (((count >> 5) & 0x1F) << 16)).reshape(
+        cfg.rays_per_pixel, cfg.height, cfg.width)
+    sums = fields[0]
+    for k in range(1, cfg.rays_per_pixel):
+        sums = sums + fields[k]
+    n_lights = scene.directional_lights.count + scene.point_lights.count
+    return fb, traces_from_pixel_sums(sums, n_lights)
+
+
+render_frame_pixel_rate_plain.launches = 0
+
+
+def sky_weights_plain(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The per-ray sky weight of the bounce chain with no lighting and no
+    shadow rays (``_sky_weight_kernel``, render_pallas.py:860-891), as an
+    (N, H, W) float32 tensor, sample-major as the JAX rays: bit for bit the
+    ``sky_w`` of the shaded chain."""
+    check_supported(scene, cfg)
+    sky_weights_plain.launches += 1
+    chain, _ = _demo_chain(scene, cfg, shade=False)
+    return chain[4].reshape(cfg.rays_per_pixel, cfg.height, cfg.width)
+
+
+sky_weights_plain.launches = 0
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel's wrapper
+# The CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
+
+
+def _scene_buffer(scene: Scene, name: str):
+    """The packed scene as one contiguous float32 CUDA buffer, checked
+    against the kernels' shared-memory limits: (buf, n_sph, n_dl, n_pl).
+    Raises on CPU tensors."""
+    from ttrt_torch.kernels import build
+
+    packed = pack_scene(scene, torch.float32)
+    buf = torch.cat(list(packed)).contiguous()
+    if buf.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {buf.device}")
+    n_sph = scene.spheres.count
+    n_dl = scene.directional_lights.count
+    n_pl = scene.point_lights.count
+    expected = (CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS
+                + DLIGHT_FLOATS * n_dl + PLIGHT_FLOATS * n_pl)
+    if buf.dtype != torch.float32 or buf.numel() != expected:
+        raise ValueError(f"packed scene must be {expected} float32 values, "
+                         f"got {buf.numel()} {buf.dtype}")
+    limits = (ctypes.c_int * 3)()
+    build.load().ttrt_render_limits(limits)
+    if n_sph > limits[0] or n_dl > limits[1] or n_pl > limits[2]:
+        raise ConfigError(
+            f"the render kernel takes at most {limits[0]} spheres, "
+            f"{limits[1]} directional and {limits[2]} point lights; got "
+            f"{n_sph}, {n_dl}, {n_pl}")
+    return buf, n_sph, n_dl, n_pl
+
+
+def sky_table(skybox, device) -> torch.Tensor:
+    """The cubemap's packed texels as the kernels read them: a flat,
+    contiguous int32 tensor on ``device`` (read only for an image sky)."""
+    flat = skybox.packed.reshape(-1)
+    if flat.dtype != torch.int32 or flat.device != device:
+        raise ValueError("the sky's texels must be int32 on "
+                         f"{device}, got {flat.dtype} on {flat.device}")
+    return flat.contiguous()
+
+
+def _launch_render(scene: Scene, cfg: RenderConfig, name: str,
+                   pixel_rate: bool):
+    """Launch ``render_kernel`` (csrc/render.cu): returns the (3, H, W)
+    frame and the per-pixel counts (trace counts, or with ``pixel_rate``
+    the 16|16 sums)."""
+    from ttrt_torch.kernels import build
+
+    buf, n_sph, n_dl, n_pl = _scene_buffer(scene, name)
+    texels = sky_table(scene.skybox, buf.device)
+    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
+    out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
+    counts = torch.empty((H, W), dtype=torch.int32, device=buf.device)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = build.load().ttrt_render(
+        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, cfg.bounce_limit,
+        int(cfg.specular), int(cfg.energy_model == "subtract"),
+        sky_kind(scene.skybox), scene.skybox.dim, int(cfg.skybox_bilinear),
+        texels.data_ptr(), int(pixel_rate), out.data_ptr(),
+        counts.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
+    return out, counts
 
 
 def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
@@ -701,44 +911,8 @@ def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
     per pixel writes the (3, H, W) sample average and the pixel's trace
     count. Raises on anything the kernel does not take, CPU tensors
     included; the count is summed only when ``count_rays`` is set."""
-    from ttrt_torch.kernels import build
-
     check_supported(scene, cfg)
-    packed = pack_scene(scene, torch.float32)
-    buf = torch.cat(list(packed)).contiguous()
-    if buf.device.type != "cuda":
-        raise ValueError(
-            f"render_frame_cuda needs CUDA tensors, got {buf.device}")
-    n_sph = scene.spheres.count
-    n_dl = scene.directional_lights.count
-    n_pl = scene.point_lights.count
-    expected = (CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS
-                + DLIGHT_FLOATS * n_dl + PLIGHT_FLOATS * n_pl)
-    if buf.dtype != torch.float32 or buf.numel() != expected:
-        raise ValueError(f"packed scene must be {expected} float32 values, "
-                         f"got {buf.numel()} {buf.dtype}")
-
-    lib = build.load()
-    limits = (ctypes.c_int * 3)()
-    lib.ttrt_render_limits(limits)
-    if n_sph > limits[0] or n_dl > limits[1] or n_pl > limits[2]:
-        raise ConfigError(
-            f"the render kernel takes at most {limits[0]} spheres, "
-            f"{limits[1]} directional and {limits[2]} point lights; got "
-            f"{n_sph}, {n_dl}, {n_pl}")
-
-    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-    out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
-    counts = torch.empty((H, W), dtype=torch.int32, device=buf.device)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = lib.ttrt_render(
-        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, cfg.bounce_limit,
-        int(cfg.specular), int(cfg.energy_model == "subtract"),
-        SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        int(cfg.skybox_bilinear), out.data_ptr(), counts.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
+    out, counts = _launch_render(scene, cfg, "render_frame_cuda", False)
     render_frame_cuda.launches += 1
     fb = Vec3(out[0], out[1], out[2])
     return fb, counts.sum(dtype=torch.int64) if count_rays else None
@@ -747,11 +921,72 @@ def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
 render_frame_cuda.launches = 0
 
 
+def render_frame_pixel_rate_cuda(scene: Scene, cfg: RenderConfig
+                                 ) -> Tuple[Vec3, torch.Tensor]:
+    """``render_frame_pixel_rate`` with the CUDA kernel
+    (``render_kernel<true>``): the frame, and the trace count decoded from
+    the per-pixel 16|16 sums. Raises on CPU tensors."""
+    check_pixel_rate(scene, cfg)
+    out, sums = _launch_render(scene, cfg, "render_frame_pixel_rate_cuda",
+                               True)
+    render_frame_pixel_rate_cuda.launches += 1
+    n_lights = scene.directional_lights.count + scene.point_lights.count
+    return (Vec3(out[0], out[1], out[2]),
+            traces_from_pixel_sums(sums, n_lights))
+
+
+render_frame_pixel_rate_cuda.launches = 0
+
+
+def sky_weights_cuda(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """``sky_weights`` with the CUDA kernel (``sky_weight_kernel``): one
+    thread per pixel writes the sky weight of each of its samples. Raises
+    on CPU tensors."""
+    from ttrt_torch.kernels import build
+
+    check_supported(scene, cfg)
+    buf, n_sph, n_dl, n_pl = _scene_buffer(scene, "sky_weights_cuda")
+    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
+    out = torch.empty((N, H, W), dtype=torch.float32, device=buf.device)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = build.load().ttrt_sky_weights(
+        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, cfg.bounce_limit,
+        out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"sky-weight kernel launch failed: CUDA error {rc}")
+    sky_weights_cuda.launches += 1
+    return out
+
+
+sky_weights_cuda.launches = 0
+
+
+def _on_cpu(scene) -> bool:
+    return scene.spheres.radius.device.type == "cpu"
+
+
 def render_frame(scene: Scene, cfg: RenderConfig, *,
                  count_rays: bool = True
                  ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Render one frame on the device that holds the scene: the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if scene.spheres.radius.device.type == "cpu":
-        return render_frame_plain(scene, cfg, count_rays=count_rays)
-    return render_frame_cuda(scene, cfg, count_rays=count_rays)
+    fn = render_frame_plain if _on_cpu(scene) else render_frame_cuda
+    return fn(scene, cfg, count_rays=count_rays)
+
+
+def render_frame_pixel_rate(scene: Scene, cfg: RenderConfig
+                            ) -> Tuple[Vec3, torch.Tensor]:
+    """The pixel-rate layout of the frame (``_render_kernel_acc``) on the
+    device that holds the scene: the (H, W) framebuffer, equal to
+    ``render_frame``'s, and its trace count."""
+    fn = (render_frame_pixel_rate_plain if _on_cpu(scene)
+          else render_frame_pixel_rate_cuda)
+    return fn(scene, cfg)
+
+
+def sky_weights(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The (N, H, W) per-ray sky weights (``_sky_weight_kernel``) on the
+    device that holds the scene."""
+    return (sky_weights_plain if _on_cpu(scene) else sky_weights_cuda)(
+        scene, cfg)
