@@ -103,6 +103,38 @@ csrc/mesh.cu):
   S6. the pixel-rate kernel (render_frame_pixel_rate) vs its plain version
       and vs render_frame_cuda, bit for bit; its time and bound.
 
+Multi-device rendering (--mesh, ttrt_torch/parallel/) and the kernels'
+lifted caps; every decomposition a mesh would give is checked on the one
+card through the sharded renderers' pure combine functions:
+
+  M0. the demo and path-tracing kernels on a 70-sphere, 9 + 9-light demo
+      scene at the full config (the scene in shared memory) and on a
+      1400-sphere scene at 64x32 (past 48 KB: read in place), and the
+      fused kernel on a 2240-sphere scene with 9 + 9 lights: bit for bit
+      equal to their plain versions, traces and work included.
+  M1. render_band_cuda (the demo kernel's band form, samples summed) over
+      the decompositions 4x1, 2x2 and 1x2, 'colors' and 'milky_way'
+      bilinear, put together with parallel.sharding.combine_bands: one
+      sample slice a band equals render_frame_cuda bit for bit, more are
+      within sum_bound(N) (the N-term sum reassociated); one band against
+      its plain version, bit for bit; the band launch's times and bound.
+  M2. the path tracer's sum mode against its plain version, bit for bit;
+      4 device streams (parallel.sharding.device_seed) at 3 spp combined
+      against one 12-spp frame (image means); its times, and the mean
+      mode's kernel alone.
+  M3. the fused kernel's 2x2 bands at 10k spheres against its whole
+      frame, within sum_bound(N), equal traces.
+  M4. cluster_nearest_cuda on 2 and 4 objects shards of the 10k-sphere
+      pack, merged (parallel.objects.merge_nearest), against the whole
+      pack on phase B's 1,344,000 primary rays: t and ids bit for bit; a
+      shard's times and bound.
+  M5. the main paths through --mesh on a one-rank NCCL process group
+      (run_animation(..., mesh_spec=...), torn down after each): 60 demo
+      frames, 10 --pathtrace frames, 5 --scene many frames with mesh
+      'auto', and 2 frames of --scene many on '1x1x1' (the objects axis),
+      each with the launch counts set to 0 before and read after: the
+      kernels' counts rise, the plain versions' stay 0.
+
 Prints, before the last line, one JSON line of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
@@ -555,6 +587,83 @@ def pathtrace_ops(work, n_spheres: int, n_lights: int,
         + n_paths * PT_PATH_OPS)
 
 
+def crowd_arrays(n_spheres: int, n_dlights: int, n_plights: int,
+                 seed: int = 0) -> dict:
+    """Seeded numpy leaves of a crowded demo scene, keyed by field path as
+    ``scene_from_numpy`` reads them: ``n_spheres`` spheres on a jittered
+    grid (1.4 m, or finer for more than 96 spheres) around the camera's
+    orbit, none touching another or the ground, under ``n_dlights``
+    directional and ``n_plights`` point lights above them, dim enough that
+    the lights do not saturate every surface. Past the kernels' old caps
+    (64 spheres, 8 + 8 lights)."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    step = 1.4
+    while True:
+        grid = np.arange(-7.0, 7.0 + step / 2, step)
+        cells = np.array([(x, z) for x in grid for z in grid
+                          if max(abs(x), abs(z)) > 3.0])
+        if len(cells) >= n_spheres:
+            break
+        step *= 0.9
+    pick = cells[rng.choice(len(cells), n_spheres, replace=False)]
+    radius = rng.uniform(0.14, 0.32, n_spheres) * step
+    jitter = lambda: rng.uniform(-0.14, 0.14, n_spheres) * step  # noqa: E731
+    center = np.stack([pick[:, 0] + jitter(),
+                       rng.uniform(-1.5, 1.5, n_spheres),
+                       pick[:, 1] + jitter()], -1)
+    out = {}
+    for i, c in enumerate("xyz"):
+        out[f"spheres.center.{c}"] = f(center[:, i])
+        out[f"spheres.material.color.{c}"] = f(
+            rng.uniform(0.1, 1.0, n_spheres))
+    out["spheres.radius"] = f(radius)
+    out["spheres.material.reflectivity"] = f(rng.uniform(0.0, 0.8, n_spheres))
+    out["spheres.material.specularity"] = f(np.full(n_spheres, 100.0))
+    direction = rng.normal(size=(n_dlights, 3))
+    direction[:, 1] = -np.abs(direction[:, 1]) - 1.0
+    position = rng.uniform([-6.0, 3.0, -6.0], [6.0, 6.0, 6.0], (n_plights, 3))
+    for i, c in enumerate("xyz"):
+        out[f"directional_lights.direction.{c}"] = f(direction[:, i])
+        out[f"directional_lights.color.{c}"] = f(
+            rng.uniform(0.02, 0.1, n_dlights))
+        out[f"point_lights.position.{c}"] = f(position[:, i])
+        out[f"point_lights.color.{c}"] = f(rng.uniform(0.05, 0.2, n_plights))
+    out["point_lights.intensity"] = f(rng.uniform(2.0, 12.0, n_plights))
+    return out
+
+
+def crowd(scene, n_spheres: int, n_dlights: int, n_plights: int,
+          seed: int = 0):
+    """``scene`` with ``crowd_arrays``' lights and, for a demo ``Scene``
+    (``n_spheres`` > 0), its spheres, on its device and in its dtype; a
+    ``MeshScene`` keeps its spheres and their cluster pack."""
+    import torch
+
+    from ttrt_torch.scene import (DirectionalLights, Materials, PointLights,
+                                  Spheres)
+    from ttrt_torch.vec import Vec3
+
+    a = crowd_arrays(max(n_spheres, 1), n_dlights, n_plights, seed)
+    like = scene.spheres.radius
+    t = lambda k: torch.as_tensor(a[k], dtype=like.dtype,  # noqa: E731
+                                  device=like.device)
+    v = lambda p: Vec3(t(p + ".x"), t(p + ".y"), t(p + ".z"))  # noqa: E731
+    scene = scene._replace(
+        directional_lights=DirectionalLights(
+            v("directional_lights.direction"), v("directional_lights.color")),
+        point_lights=PointLights(v("point_lights.position"),
+                                 v("point_lights.color"),
+                                 t("point_lights.intensity")))
+    if not n_spheres:
+        return scene
+    return scene._replace(spheres=Spheres(
+        v("spheres.center"), t("spheres.radius"),
+        Materials(v("spheres.material.color"),
+                  t("spheres.material.reflectivity"),
+                  t("spheres.material.specularity"))))
+
+
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` launches, CUDA events."""
     import torch
@@ -746,6 +855,7 @@ def main() -> int:
     kernels += mesh_kernels
     kernels.append(pathtrace_phases(card, dev, full))
     kernels += sky_phases(card, dev, full, fused_work)
+    kernels += mesh_axis_phases(card, dev, full)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1399,6 +1509,336 @@ def sky_phases(card: str, dev, full, fused_work: dict) -> list:
               launches=path_launches[8], max_abs_err=rate_err, ms=rate_ms,
               plain_ms=rate_plain_ms, bound_ms=rate_bound[0],
               bound_by=rate_bound[1]),
+    ]
+
+
+def sum_bound(n: int) -> float:
+    """The largest |d| between a frame whose N-sample sums were added in
+    slices and the in-order one: each order is within (N - 1) u N of the
+    exact sum of N samples <= 1 (u = 2^-24), and the 1/N scaling adds at
+    most u, so |d| <= 2 (N - 1) u + 2 u = N 2^-23."""
+    return n * 2.0 ** -23
+
+
+def mesh_axis_phases(card: str, dev, full) -> list:
+    """Phases M0-M5; returns the kernels line's entries of the band launch
+    of the demo kernel, the path-tracing kernel's sum mode and
+    cluster_nearest on objects shards."""
+    import torch
+
+    from ttrt_torch import app, assets
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import mesh, mesh_fused, pathtrace, render
+    from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.parallel import objects, sharding
+    from ttrt_torch.render import pathtrace as estimator
+    from ttrt_torch.render.integrator import generate_rays
+    from ttrt_torch.scene import demo_scene
+    from ttrt_torch.utils.profiling import StageTimers
+    from ttrt_torch.vec import Vec3
+
+    t_start = time.perf_counter()
+    lights = estimator.default_area_lights(full, dev)
+    n_px = full.width * full.height
+
+    def demo_at(sky: str, t: float, cfg=full):
+        scene = demo_scene(assets.load_skybox(sky, device=dev), cfg.width,
+                           cfg.height, dtype=torch.float32, device=dev)
+        return scene.with_camera_frame(
+            orbit_camera_frame(t, dtype=torch.float32, device=dev))
+
+    def same(ref, out, label) -> dict:
+        ref = ref.to_array().cpu().numpy()
+        out = out.to_array().cpu().numpy()
+        assert np.isfinite(out).all(), label
+        d = np.abs(ref.astype(np.float64) - out)
+        return {"max_abs": float(d.max()),
+                "diff_px": int((d > 0).any(axis=-1).sum())}
+
+    # -- phase M0: any sphere and light count --------------------------------
+    small = full.with_(width=64, height=32, rays_per_pixel=2, bounce_limit=3)
+    for label, cfg, scene in (
+            ("70 spheres, 9 + 9 lights (shared memory)", full,
+             crowd(demo_at("colors", 1.5), 70, 9, 9, seed=3)),
+            ("1400 spheres, 1 + 1 lights (global memory)", small,
+             crowd(demo_at("colors", 1.5, small), 1400, 1, 1, seed=4))):
+        fb_k, rays_k = render.render_frame_cuda(scene, cfg)
+        fb_p, rays_p = render.render_frame_plain(scene, cfg)
+        stats = same(fb_p, fb_k, label)
+        stats["rays"], stats["rays_ref"] = int(rays_k), int(rays_p)
+        seed = pathtrace.frame_seed(0, 1.5)
+        pt_k, work_k = pathtrace.pathtrace_frame_cuda(scene, lights, cfg,
+                                                      seed)
+        pt_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg,
+                                                       seed)
+        stats["pathtrace"] = same(pt_p, pt_k, label)
+        stats["work"] = [int(v) for v in work_k]
+        stats["work_ref"] = [int(v) for v in work_p]
+        torch.cuda.synchronize()
+        print(f"phase M0: {label}, {cfg.width}x{cfg.height}x"
+              f"{cfg.rays_per_pixel}: {json.dumps(stats)}")
+        assert stats["max_abs"] == 0.0 and stats["rays"] == stats["rays_ref"]
+        assert stats["pathtrace"]["max_abs"] == 0.0, stats
+        assert stats["work"] == stats["work_ref"], stats
+
+    # the fused kernel's camera and lights: 9 + 9 lights
+    lit = crowd(many_sphere_scene(assets.load_skybox("colors", device=dev),
+                                  2240, small.width, small.height,
+                                  dtype=torch.float32, device=dev), 0, 9, 9,
+                seed=5)
+    fb_k, rays_k = mesh_fused.render_band_mesh_fused_cuda(lit, small)
+    fb_p, rays_p = mesh_fused.render_band_mesh_fused_plain(lit, small)
+    stats = same(fb_p, fb_k, "fused, 9 + 9 lights")
+    stats["rays"], stats["rays_ref"] = int(rays_k), int(rays_p)
+    print(f"phase M0: fused kernel, 2240 spheres, 9 + 9 lights, "
+          f"{small.width}x{small.height}x{small.rays_per_pixel}: "
+          f"{json.dumps(stats)}")
+    assert stats["max_abs"] == 0.0 and stats["rays"] == stats["rays_ref"]
+
+    # -- phase M1: the demo kernel's bands -----------------------------------
+    band_err = 0.0
+    for sky, flags in (("colors", {}), ("milky_way",
+                                        {"skybox_bilinear": True})):
+        cfg = full.with_(**flags)
+        scene = demo_at(sky, 1.5)
+        whole, rays = render.render_frame_cuda(scene, cfg)
+        for n_i, n_j in ((4, 1), (2, 2), (1, 2)):
+            parts, total = {}, 0
+            for i in range(n_i):
+                for j in range(n_j):
+                    b = sharding.band_at(cfg, n_i, n_j, i, j)
+                    fb, count = render.render_band_cuda(
+                        scene, cfg, b.row_offset, b.n_rows,
+                        sample_offset=b.sample_offset, n_samples=b.n_samples,
+                        reduce="sum")
+                    parts[(i, j)] = fb
+                    total += int(count)
+            stats = same(whole, sharding.combine_bands(parts, cfg),
+                         (sky, n_i, n_j))
+            stats.update(traces=total, traces_whole=int(rays),
+                         bound=sum_bound(cfg.rays_per_pixel))
+            print(f"phase M1: {sky} {flags or ''} {n_i}x{n_j} bands "
+                  f"combined vs render_frame_cuda: {json.dumps(stats)}")
+            assert total == int(rays), stats
+            if n_j == 1:
+                assert stats["max_abs"] == 0.0, stats
+            assert stats["max_abs"] <= stats["bound"], stats
+        # one band x slice against its plain version
+        b = sharding.band_at(cfg, 2, 2, 1, 1)
+        kw = dict(sample_offset=b.sample_offset, n_samples=b.n_samples,
+                  reduce="sum")
+        fb_k, c_k = render.render_band_cuda(scene, cfg, b.row_offset,
+                                            b.n_rows, **kw)
+        fb_p, c_p = render.render_band_plain(scene, cfg, b.row_offset,
+                                             b.n_rows, **kw)
+        stats = same(fb_p, fb_k, "band (1, 1)")
+        band_err = max(band_err, stats["max_abs"])
+        print(f"phase M1: {sky} band (1, 1) of 2x2, kernel vs plain: "
+              f"{json.dumps(stats)}, traces {int(c_k)} / {int(c_p)}")
+        assert stats["max_abs"] == 0.0 and int(c_k) == int(c_p), stats
+    # the band launch of a one-rank mesh: the whole frame, samples summed
+    scene = demo_at("colors", 1.5)
+    _, band_rays = render.render_band_cuda(scene, full, reduce="sum")
+    run = lambda: render.render_band_cuda(  # noqa: E731
+        scene, full, reduce="sum", count_rays=False)
+    band_ms, band_kernel_ms = _median_ms(run), _kernel_ms(run, "render_kernel")
+    band_plain_ms = _median_ms(lambda: render.render_band_plain(
+        scene, full, reduce="sum", count_rays=False), reps=3, warmup=1)
+    frame_kernel_ms = _kernel_ms(
+        lambda: render.render_frame_cuda(scene, full, count_rays=False),
+        "render_kernel")
+    band_bound = demo_bound(int(band_rays), n_px)
+    print(f"phase M1 [{card}]: the whole-frame sum band, colors t=1.5: "
+          f"wrapper {band_ms:.4f} ms (median of 20), kernel alone "
+          f"{band_kernel_ms:.4f} ms (mean of 20), the average "
+          f"(render_frame_cuda) alone {frame_kernel_ms:.4f} ms, plain "
+          f"{band_plain_ms:.3f} ms; bound {band_bound[0]:.4f} ms by "
+          f"{band_bound[1]}")
+
+    # -- phase M2: the path tracer's sum mode --------------------------------
+    seed = pathtrace.frame_seed(0, 0.7)
+    scene = demo_at("colors", 0.7)
+    fb_k, work_k = pathtrace.pathtrace_frame_cuda(scene, lights, full, seed,
+                                                  reduce="sum")
+    fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, full, seed,
+                                                   reduce="sum")
+    stats = same(fb_p, fb_k, "sum")
+    sum_err = stats["max_abs"]
+    stats["max"] = float(fb_k.to_array().max())
+    print(f"phase M2: path tracer, sum mode, kernel vs plain: "
+          f"{json.dumps(stats)}")
+    assert stats["max_abs"] == 0.0, stats
+    assert [int(v) for v in work_k] == [int(v) for v in work_p]
+    cfg12 = full.with_(rays_per_pixel=12)
+    single, _ = pathtrace.pathtrace_frame_cuda(scene, lights, cfg12, seed)
+    parts = [pathtrace.pathtrace_frame_cuda(
+        scene, lights, cfg12.with_(rays_per_pixel=3),
+        sharding.device_seed(seed, idx), count_rays=False, reduce="sum")[0]
+        for idx in range(4)]
+    combined = sharding.combine_pathtrace(parts, cfg12)
+    gap = float(combined.to_array().mean() - single.to_array().mean())
+    print(f"phase M2: 4 device streams at 3 spp each, combined, vs one "
+          f"12-spp frame: image means differ by {gap:.6f}")
+    assert abs(gap) < PT_ESTIMATOR_MEAN_TOL, gap
+    pt_run = lambda: pathtrace.pathtrace_frame_cuda(  # noqa: E731
+        scene, lights, full, seed, count_rays=False, reduce="sum")
+    pt_ms, pt_kernel_ms = _median_ms(pt_run), _kernel_ms(pt_run,
+                                                         "pathtrace_kernel")
+    pt_mean_kernel_ms = _kernel_ms(
+        lambda: pathtrace.pathtrace_frame_cuda(scene, lights, full, seed,
+                                               count_rays=False),
+        "pathtrace_kernel")
+    pt_plain_ms = _median_ms(lambda: pathtrace.pathtrace_frame_plain(
+        scene, lights, full, seed, count_rays=False, reduce="sum"), reps=3,
+        warmup=1)
+    pt_bound = bound_ms(
+        pathtrace_ops(work_k, scene.spheres.count, lights.count,
+                      n_px * full.rays_per_pixel),
+        4 * (17 + 9 * scene.spheres.count + 16 + 8 * lights.count)
+        + 20 * n_px)
+    print(f"phase M2 [{card}]: sum mode wrapper {pt_ms:.4f} ms (median of "
+          f"20), kernel alone {pt_kernel_ms:.4f} ms, the mean mode alone "
+          f"{pt_mean_kernel_ms:.4f} ms (means of 20), plain "
+          f"{pt_plain_ms:.3f} ms; bound {pt_bound[0]:.4f} ms by "
+          f"{pt_bound[1]}")
+
+    # -- phase M3: the fused kernel's bands ----------------------------------
+    many = many_sphere_scene(assets.load_skybox("colors", device=dev),
+                             N_SPHERES, full.width, full.height,
+                             dtype=torch.float32, device=dev)
+    many = many.with_camera_frame(
+        orbit_camera_frame(3.3, dtype=torch.float32, device=dev))
+    whole, rays = mesh_fused.render_band_mesh_fused_cuda(many, full)
+    parts, total = {}, 0
+    for i in range(2):
+        for j in range(2):
+            b = sharding.band_at(full, 2, 2, i, j)
+            fb, count = mesh_fused.render_band_mesh_fused_cuda(
+                many, full, b.row_offset, b.n_rows,
+                sample_offset=b.sample_offset, n_samples=b.n_samples,
+                reduce="sum")
+            parts[(i, j)] = fb
+            total += int(count)
+    stats = same(whole, sharding.combine_bands(parts, full), "fused 2x2")
+    stats.update(traces=total, traces_whole=int(rays),
+                 bound=sum_bound(full.rays_per_pixel))
+    print(f"phase M3: fused kernel, {N_SPHERES} spheres, t=3.3, 2x2 bands "
+          f"combined vs the whole frame: {json.dumps(stats)}")
+    assert total == int(rays) and stats["max_abs"] <= stats["bound"], stats
+
+    # -- phase M4: cluster_nearest on objects shards -------------------------
+    o, d = generate_rays(many, full)
+    o = Vec3(*(c.contiguous() for c in o))
+    whole_hit = mesh.cluster_nearest_cuda(many.clusters, o, d)
+    shard_err = 0.0
+    for n in (2, 4):
+        padded = objects.pad_pack_subclusters(many.clusters.tables, n)
+        shards = [objects.shard_tables(padded, n, k) for k in range(n)]
+        merged = objects.merge_nearest(
+            [mesh.cluster_nearest_cuda(sh, o, d) for sh in shards])
+        stats = nearest_bar(whole_hit, merged)
+        shard_err = max(shard_err, stats["max_abs_t"])
+        print(f"phase M4: {n} shards of {padded.kb_sph} + {padded.kb_tri} "
+              f"subclusters, merged vs the whole pack: {json.dumps(stats)}")
+    quarter = shards[0]
+    shard_ms = _median_ms(lambda: mesh.cluster_nearest_cuda(quarter, o, d))
+    shard_plain_ms = _median_ms(
+        lambda: mesh.cluster_nearest_plain(quarter, o, d), reps=1, warmup=0)
+    n_rays = o.x.numel()
+    shard_bytes = sum(v.numel() * v.element_size() for v in quarter
+                      if isinstance(v, torch.Tensor))
+    lo, hi = (quarter.qbox[:, :3], quarter.qbox[:, 3:6])
+    keep = quarter.qbox[:, 6] > 0
+    n_obj = quarter.qbox[keep, 6]
+    is_tri = (torch.arange(quarter.qbox.shape[0], device=dev)
+              >= 4 * quarter.kb_sph)[keep]
+    boxes = (lo[keep], hi[keep], n_obj,
+             n_obj * torch.where(is_tri, float(TRI_OPS), float(SPHERE_OPS)))
+    t_shard = mesh.cluster_nearest_cuda(quarter, o, d).t
+    shard_objs, shard_ops = narrow_work(boxes, o, d, t_shard)
+    shard_bound = bound_ms(
+        n_rays * int(keep.sum()) * SLAB_OPS + float(shard_ops),
+        shard_bytes + 32 * n_rays)
+    print(f"phase M4 [{card}]: cluster_nearest on shard 0 of 4 "
+          f"({int(keep.sum())} quarters), {n_rays} primary rays: "
+          f"{shard_ms:.4f} ms (median of 20), plain {shard_plain_ms:.3f} ms; "
+          f"bound {shard_bound[0]:.4f} ms by {shard_bound[1]} "
+          f"({float(shard_objs) / n_rays:.2f} narrow tests a ray)")
+    torch.cuda.synchronize()
+    print(f"phases M0-M4: {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase M5: --mesh on the card, a one-rank NCCL group -----------------
+    unpaced = full.with_(frame_rate=1e9)
+    counters = (render.render_band_cuda, render.render_band_plain,
+                render.render_frame_cuda, render.render_frame_plain,
+                pathtrace.pathtrace_frame_cuda,
+                pathtrace.pathtrace_frame_plain,
+                mesh_fused.render_band_mesh_fused_cuda,
+                mesh_fused.render_band_mesh_fused_plain,
+                mesh.cluster_nearest_cuda, mesh.cluster_nearest_plain)
+    launches = {}
+    many0 = many.with_camera_frame(
+        orbit_camera_frame(0.0, dtype=torch.float32, device=dev))
+    for name, spec, frames, kw in (
+            ("demo", "auto", N_FRAMES, {"device": dev}),
+            ("pathtrace", "auto", 10, {"device": dev, "pathtrace": True}),
+            ("many", "auto", 5, {"scene": many0}),
+            ("objects", "1x1x1", 2, {"scene": many0})):
+        sink = io.BytesIO()
+        timers = StageTimers()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        app.run_animation(unpaced, "colors", max_frames=frames,
+                          interactive=False, encode="device", stream=sink,
+                          timers=timers, mesh_spec=spec, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert not torch.distributed.is_initialized()
+        launches[name] = [fn.launches for fn in counters]
+        validate_stream(sink.getvalue(), full.width, full.height, frames)
+        split = {k: [round(st["mean_ms"], 4), round(st["p50_ms"], 4)]
+                 for k, st in timers.summary().items()}
+        print(f"phase M5 [{card}]: --mesh {spec} ({name}), one NCCL rank: "
+              f"{frames} frames in {wall:.3f} s = {frames / wall:.2f} fps "
+              f"end to end (pacing off, process group set-up included), "
+              f"stage [mean, median] (ms) {json.dumps(split)}; launches "
+              f"(kernel, "
+              f"plain): band {launches[name][0:2]}, frame "
+              f"{launches[name][2:4]}, pathtrace {launches[name][4:6]}, "
+              f"fused {launches[name][6:8]}, cluster_nearest "
+              f"{launches[name][8:10]}")
+    z = [0, 0]
+    assert launches["demo"] == [N_FRAMES, 0] + z * 4, launches
+    assert launches["pathtrace"] == z * 2 + [10, 0] + z * 2, launches
+    assert launches["many"] == z * 3 + [5, 0] + z, launches
+    assert launches["objects"][:8] == [0] * 8, launches
+    assert launches["objects"][8] > 0 and launches["objects"][9] == 0, (
+        launches)
+    print(f"phases M0-M5: {time.perf_counter() - t_start:.1f} s")
+
+    def entry(**kw) -> dict:
+        # no single PyTorch call renders a band or finds a nearest hit
+        return {"route": "cuda", "library_ms": None, **kw}
+
+    return [
+        entry(name="render_band", source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:1357",
+              launches=launches["demo"][0], max_abs_err=band_err,
+              ms=band_ms, plain_ms=band_plain_ms, bound_ms=band_bound[0],
+              bound_by=band_bound[1]),
+        entry(name="pathtrace_sum",
+              source="ttrt_torch/kernels/csrc/pathtrace.cu",
+              replaces="ttrt/kernels/pathtrace_pallas.py:372",
+              launches=launches["pathtrace"][4], max_abs_err=sum_err,
+              ms=pt_ms, plain_ms=pt_plain_ms, bound_ms=pt_bound[0],
+              bound_by=pt_bound[1]),
+        entry(name="cluster_nearest_objects_shard",
+              source="ttrt_torch/kernels/csrc/mesh.cu",
+              replaces="ttrt/parallel/objects.py:152",
+              launches=launches["objects"][8], max_abs_err=shard_err,
+              ms=shard_ms, plain_ms=shard_plain_ms,
+              bound_ms=shard_bound[0], bound_by=shard_bound[1]),
     ]
 
 

@@ -74,7 +74,9 @@ def test_cli_refusals_are_one_line(args, match):
 
 
 def test_import_leaves_jax_and_ttrt_out():
-    code = ("import sys, ttrt_torch.app, ttrt_torch.kernels.build; "
+    code = ("import sys, ttrt_torch.app, ttrt_torch.kernels.build, "
+            "ttrt_torch.parallel.mesh, ttrt_torch.parallel.sharding, "
+            "ttrt_torch.parallel.objects; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ttrt.')) or m == 'ttrt']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -91,7 +93,8 @@ def test_package_source_has_no_jax_import_and_no_fallback():
         src = path.read_text()
         assert not banned.search(src), path
     for name in ("kernels/render.py", "kernels/build.py", "kernels/mesh.py",
-                 "kernels/mesh_fused.py"):
+                 "kernels/mesh_fused.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "parallel/objects.py"):
         src = (REPO / "ttrt_torch" / name).read_text()
         assert not re.search(r"^\s*except\b", src, re.M), name
 

@@ -1,7 +1,8 @@
-"""The CUDA kernels on the card: the demo render kernel, the two
-many-object kernels (fused whole-frame, cluster_nearest) and the
-path-tracing kernel against their plain versions and the stored JAX
-goldens, and their wrappers' checks.
+"""The CUDA kernels on the card: the demo render kernel (whole frames and
+bands), the two many-object kernels (fused whole-frame, cluster_nearest on
+the whole pack and on objects shards) and the path-tracing kernel (mean
+and sum) against their plain versions and the stored JAX goldens, and
+their wrappers' checks.
 Marked ``cuda``; each test skips without a CUDA device. The machine with
 the card has no JAX, so run these without the repository's conftest (which
 imports JAX):
@@ -20,8 +21,10 @@ from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import mesh, mesh_fused, pathtrace, render
 from ttrt_torch.mesh.dense import dense_nearest
 from ttrt_torch.mesh.scene import many_sphere_scene, trace_ray_mesh
+from ttrt_torch.parallel import objects, sharding
+from ttrt_torch.render.integrator import generate_rays
 from ttrt_torch.render.pathtrace import default_area_lights
-from ttrt_torch.scene import Spheres, demo_scene
+from ttrt_torch.scene import demo_scene
 from ttrt_torch.vec import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -64,15 +67,71 @@ def test_kernel_meets_stored_golden(cuda):
 
 
 def test_kernel_refuses_too_many_spheres(cuda):
-    cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2)
-    scene = _scene("colors", 0.0, cfg, cuda)
-    n = 65
-    rng = np.random.default_rng(5)
-    many = Spheres.create(rng.uniform(-1, 1, (n, 3)), np.full(n, 0.1),
-                          rng.uniform(0, 1, (n, 3)), 0.5, dtype=torch.float32,
-                          device=cuda)
-    with pytest.raises(ConfigError, match="at most 64 spheres"):
-        render.render_frame_cuda(scene._replace(spheres=many), cfg)
+    """No sphere or light count is too many: past 64 spheres and 8 + 8
+    lights (a table in shared memory), and past the 48 KB of shared memory
+    (read in place), the demo and path-tracing kernels equal their plain
+    versions bit for bit."""
+    cfg = RenderConfig(width=40, height=24, rays_per_pixel=2, bounce_limit=3)
+    lights = default_area_lights(cfg, cuda)
+    for n, n_dl, n_pl in ((65, 9, 9), (1400, 1, 1)):
+        scene = chip_smoke.crowd(_scene("colors", 1.5, cfg, cuda), n, n_dl,
+                                 n_pl, seed=n)
+        fb_k, rays_k = render.render_frame_cuda(scene, cfg)
+        fb_p, rays_p = render.render_frame_plain(scene, cfg)
+        pt_k, work_k = pathtrace.pathtrace_frame_cuda(scene, lights, cfg, 9)
+        pt_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg, 9)
+        torch.cuda.synchronize()
+        assert torch.equal(fb_k.to_array(), fb_p.to_array()), n
+        assert int(rays_k) == int(rays_p)
+        assert torch.equal(pt_k.to_array(), pt_p.to_array()), n
+        assert work_k.tolist() == work_p.tolist()
+
+
+def test_bands_and_sum_mode_match_plain_versions(cuda):
+    """A band x sample slice of the demo kernel and the path tracer's sum
+    mode equal their plain versions bit for bit; bands with one slice put
+    together equal the whole frame."""
+    cfg = RenderConfig(width=97, height=40, rays_per_pixel=4,
+                       bounce_limit=10)
+    scene = _scene("colors", 2.2, cfg, cuda)
+    b = sharding.band_at(cfg, 2, 2, 1, 1)
+    kw = dict(sample_offset=b.sample_offset, n_samples=b.n_samples,
+              reduce="sum")
+    before = render.render_band_cuda.launches
+    fb_k, c_k = render.render_band(scene, cfg, b.row_offset, b.n_rows, **kw)
+    assert render.render_band_cuda.launches == before + 1
+    fb_p, c_p = render.render_band_plain(scene, cfg, b.row_offset, b.n_rows,
+                                         **kw)
+    whole, _ = render.render_frame_cuda(scene, cfg)
+    parts = {(i, 0): render.render_band_cuda(
+        scene, cfg, 10 * i, 10, reduce="sum")[0] for i in range(4)}
+    lights = default_area_lights(cfg, cuda)
+    pt_k, _ = pathtrace.pathtrace_frame_cuda(scene, lights, cfg, 3,
+                                             reduce="sum")
+    pt_p, _ = pathtrace.pathtrace_frame_plain(scene, lights, cfg, 3,
+                                              reduce="sum")
+    torch.cuda.synchronize()
+    assert torch.equal(fb_k.to_array(), fb_p.to_array())
+    assert int(c_k) == int(c_p)
+    assert torch.equal(sharding.combine_bands(parts, cfg).to_array(),
+                       whole.to_array())
+    assert torch.equal(pt_k.to_array(), pt_p.to_array())
+
+
+def test_objects_shards_match_the_whole_pack(cuda):
+    """cluster_nearest on 2 and 4 objects shards, merged by t then id,
+    equals the whole pack's kernel and the plain version on a shard."""
+    cfg = RenderConfig(width=64, height=32, rays_per_pixel=2)
+    scene = _mesh_scene(0.7, cfg, cuda)
+    o, d = generate_rays(scene, cfg)
+    whole = mesh.cluster_nearest_cuda(scene.clusters, o, d)
+    for n in (2, 4):
+        padded = objects.pad_pack_subclusters(scene.clusters.tables, n)
+        shards = [objects.shard_tables(padded, n, k) for k in range(n)]
+        hits = [mesh.cluster_nearest_cuda(sh, o, d) for sh in shards]
+        chip_smoke.nearest_bar(whole, objects.merge_nearest(hits))
+        chip_smoke.nearest_bar(mesh.cluster_nearest_plain(shards[-1], o, d),
+                               hits[-1])
 
 
 def _mesh_scene(t, cfg, device, n_spheres=2240, sky="colors"):

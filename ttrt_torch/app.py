@@ -13,6 +13,11 @@ Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
 
 Scene state is a pure function of t, so a run is resumed by its t.
 
+``--mesh`` renders each frame over a device mesh of ranks
+(``parallel``): every rank runs this loop's frame step on its share of
+the frame, rank 0 picks each frame's time and camera offset and
+broadcasts them, and rank 0 alone encodes and writes the frame.
+
 One frame is rendered per step (the JAX package batches 8 frames per
 device program on an accelerator, to amortize a remote host link; the port
 has no such link and keeps batch 1).
@@ -23,17 +28,22 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
+import functools
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ttrt_torch import assets
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import mesh_fused, pathtrace, render
 from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene
+from ttrt_torch.parallel import mesh as pmesh
+from ttrt_torch.parallel import objects, sharding
 from ttrt_torch.render import integrator
 from ttrt_torch.render import pathtrace as estimator
 from ttrt_torch.scene import Scene, demo_scene
@@ -76,6 +86,48 @@ def _pick_renderer(scene, cfg: RenderConfig, renderer: str = "auto"):
         return mesh_fused.render_frame_mesh_fused
     render.check_supported(scene, cfg)
     return render.render_frame
+
+
+def _pick_renderer_sharded(scene, cfg: RenderConfig, mesh,
+                           renderer: str = "auto"):
+    """The multi-device analog of ``_pick_renderer``
+    (``ttrt.app._pick_renderer_sharded``, app.py:223-266): a (scene, cfg,
+    count_rays=...) -> (fb, rays) function over ``mesh``, with the same
+    routing.
+
+    - an objects axis: the eager integrator with the geometry sharded
+      (``parallel.objects``); it needs a cluster-packed ``MeshScene``;
+    - ``eager``, or ``auto`` in float64: the sharded eager integrator;
+    - otherwise the band launches of a kernel: the fused kernel for a
+      ``MeshScene``, the demo kernel for the demo scene.
+
+    Height and spp must divide by the mesh's rows and samples."""
+    if renderer not in RENDERERS:
+        raise ConfigError(f"unknown renderer {renderer!r}")
+    sharding.check_mesh_divisible(cfg, mesh)
+    if pmesh.OBJECTS in mesh.mesh_dim_names:
+        if not (isinstance(scene, MeshScene)
+                and scene.clusters is not None):
+            raise ConfigError(
+                "--mesh with an objects factor needs a cluster-packed "
+                "many-object scene (--scene many)")
+        if cfg.dtype != torch.float32:
+            raise ConfigError("--mesh with an objects factor traces "
+                              "through the float32 cluster_nearest: --f64 "
+                              "is refused with it")
+        return functools.partial(objects.render_frame_sharded_objects,
+                                 mesh=mesh)
+    if renderer == "eager" or (renderer == "auto"
+                               and cfg.dtype != torch.float32):
+        _check_f64_mesh_on_cpu(scene, cfg)
+        return functools.partial(sharding.render_frame_sharded, mesh=mesh)
+    if isinstance(scene, MeshScene):
+        mesh_fused.check_supported(scene, cfg)
+        return functools.partial(sharding.render_frame_sharded_mesh_fused,
+                                 mesh=mesh)
+    render.check_supported(scene, cfg)
+    return functools.partial(sharding.render_frame_sharded_kernel,
+                             mesh=mesh)
 
 
 def _check_f64_mesh_on_cpu(scene, cfg: RenderConfig) -> None:
@@ -131,27 +183,58 @@ def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
                       device=device)
 
 
+def _pick(scene, cfg: RenderConfig, renderer: str, mesh):
+    """``_pick_renderer``, or over a ``mesh`` ``_pick_renderer_sharded``."""
+    if mesh is None:
+        return _pick_renderer(scene, cfg, renderer)
+    return _pick_renderer_sharded(scene, cfg, mesh, renderer)
+
+
+def _mesh_context(mesh_spec, scene, device):
+    """(a context that yields the device mesh of ``mesh_spec``, or None
+    without one; the device to render on: the scene's, else this rank's
+    local ``device``)."""
+    if mesh_spec is None:
+        return contextlib.nullcontext(), device
+    if scene is not None:
+        device = scene.spheres.radius.device
+    device = pmesh.local_device(device)
+    return pmesh.open_mesh(mesh_spec, device), device
+
+
+def _encoder(cfg: RenderConfig, encode: str, device, mesh):
+    """fb -> frame bytes: the ANSI buffer ('device') or the compact (H, W,
+    3) uint8 frame ('host'); over a mesh, None on every rank but 0, which
+    alone writes the frame."""
+    if mesh is not None and dist.get_rank() != 0:
+        return lambda fb: None
+    if encode != "device":
+        return encode_rgb_frame
+    template = ansi_template(cfg.width, cfg.height, device)
+    return lambda fb: encode_ansi_frame(fb, template)
+
+
 def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
-                     renderer: str = "auto"):
+                     renderer: str = "auto", mesh=None):
     """(t, cam_offset) -> frame bytes on the scene's device. ``cam_offset``
     is a world-frame camera translation driven by arrow keys (extension;
     reference stub at TerminalRayTracer.c:1196-1215).
 
     ``encode``: 'device' returns the full ANSI buffer; 'host' returns the
-    compact (H, W, 3) uint8 frame, which the host expands."""
+    compact (H, W, 3) uint8 frame, which the host expands. ``mesh`` (a
+    ``parallel.mesh`` device mesh) renders the frame over its ranks
+    (``_pick_renderer_sharded``); rank 0 alone gets the frame's bytes, the
+    others None."""
     device = scene.spheres.radius.device
-    render_fn = _pick_renderer(scene, cfg, renderer)
-    template = (ansi_template(cfg.width, cfg.height, device)
-                if encode == "device" else None)
+    render_fn = _pick(scene, cfg, renderer, mesh)
+    enc = _encoder(cfg, encode, device, mesh)
 
-    def frame_step(t: float, cam_offset: torch.Tensor) -> torch.Tensor:
+    def frame_step(t: float, cam_offset: torch.Tensor):
         frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
         frame = frame._replace(origin=frame.origin + cam_offset)
         fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
                           count_rays=False)
-        if template is None:
-            return encode_rgb_frame(fb)
-        return encode_ansi_frame(fb, template)
+        return enc(fb)
 
     return frame_step
 
@@ -163,35 +246,69 @@ def _frame_generator(seed: int, device) -> torch.Generator:
 
 def build_pathtrace_frame_step(scene, cfg: RenderConfig,
                                encode: str = "device", seed: int = 0,
-                               renderer: str = "auto"):
+                               renderer: str = "auto", mesh=None):
     """(t, cam_offset) -> frame bytes by Monte-Carlo path tracing with the
     demo's area light (``ttrt.app.build_pathtrace_frame_step``,
     app.py:56-167). Each frame draws its own stream from ``seed`` and the
     scene time: the kernel takes the JAX app's frame seed
     (``kernels.pathtrace.frame_seed``), the eager estimator a generator
-    seeded with it."""
+    seeded with it. Over a ``mesh`` (app.py:81-123) every rank renders the
+    whole image at spp/n_devices from its own stream of that seed
+    (``parallel.sharding``), through the path the single device would
+    take; the mesh may have no objects axis."""
     device = scene.spheres.radius.device
     lights = estimator.default_area_lights(cfg, device)
     use_kernel = _pick_pathtracer(scene, lights, cfg, renderer)
-    template = (ansi_template(cfg.width, cfg.height, device)
-                if encode == "device" else None)
+    if mesh is not None:
+        sharding.check_pathtrace_mesh(cfg, mesh)
+    enc = _encoder(cfg, encode, device, mesh)
 
-    def frame_step(t: float, cam_offset: torch.Tensor) -> torch.Tensor:
+    def frame_step(t: float, cam_offset: torch.Tensor):
         frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
         frame = frame._replace(origin=frame.origin + cam_offset)
         s = scene.with_camera_frame(frame)
         fseed = pathtrace.frame_seed(seed, t)
-        if use_kernel:
+        if mesh is not None and use_kernel:
+            fb = sharding.pathtrace_frame_sharded_kernel(s, lights, cfg,
+                                                         fseed, mesh)
+        elif mesh is not None:
+            fb = sharding.pathtrace_frame_sharded(s, lights, cfg, fseed,
+                                                  mesh)
+        elif use_kernel:
             fb, _ = pathtrace.pathtrace_frame(s, lights, cfg, fseed,
                                               count_rays=False)
         else:
             fb = estimator.pathtrace_frame(
                 s, lights, cfg, _frame_generator(fseed, device))
-        if template is None:
-            return encode_rgb_frame(fb)
-        return encode_ansi_frame(fb, template)
+        return enc(fb)
 
     return frame_step
+
+
+class FrameSync:
+    """Rank 0 of a mesh picks each frame's scene time and camera offset
+    (its clock, its keyboard) and broadcasts them with a go flag; the other
+    ranks render what they receive until a stop. A program over
+    ``torch.distributed`` has no single controller, and ranks that read
+    their own clocks would render different frames."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(5, dtype=torch.float64, device=device)
+
+    def lead(self, t: float, cam_offset: np.ndarray) -> None:
+        self.buf.copy_(torch.tensor([1.0, t, *cam_offset],
+                                    dtype=torch.float64))
+        dist.broadcast(self.buf, src=0)
+
+    def stop(self) -> None:
+        self.buf.zero_()
+        dist.broadcast(self.buf, src=0)
+
+    def follow(self):
+        """The next (t, cam_offset) of rank 0, or None at its stop."""
+        dist.broadcast(self.buf, src=0)
+        go, t, *offset = self.buf.tolist()
+        return (t, offset) if go else None
 
 
 def _sleep_until(deadline: float) -> None:
@@ -217,7 +334,8 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                   timers: StageTimers | None = None,
                   renderer: str = "auto",
                   pathtrace: bool = False,
-                  seed: int = 0) -> float:
+                  seed: int = 0,
+                  mesh_spec: str | None = None) -> float:
     """The reference's frame loop (TerminalRayTracer.c:1315-1366): render,
     draw, pace to the frame budget, print fps. Returns the last measured
     fps.
@@ -228,16 +346,42 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     default); ``timers`` collects the per-stage times. ``scene`` defaults
     to the demo scene; ``renderer`` is ``_pick_renderer``'s, or with
     ``pathtrace`` (Monte-Carlo path tracing from ``seed``)
-    ``_pick_pathtracer``'s."""
-    if scene is None:
-        scene = make_scene("demo", cfg, skybox_name, device=device)
-    device = scene.spheres.radius.device
-    if pathtrace:
-        frame_step = build_pathtrace_frame_step(scene, cfg, encode, seed,
-                                                renderer)
-    else:
-        frame_step = build_frame_step(scene, cfg, encode, renderer)
+    ``_pick_pathtracer``'s. ``mesh_spec`` (``--mesh``) renders over a
+    device mesh (``parallel.mesh.open_mesh``: the launcher's process
+    group, or a one-rank group made here and torn down on return); rank 0
+    runs this loop and writes the frames, the other ranks render until it
+    stops and return 0."""
+    mesh_ctx, device = _mesh_context(mesh_spec, scene, device)
+    with mesh_ctx as mesh:
+        if scene is None:
+            scene = make_scene("demo", cfg, skybox_name, device=device)
+        device = scene.spheres.radius.device
+        if pathtrace:
+            frame_step = build_pathtrace_frame_step(scene, cfg, encode, seed,
+                                                    renderer, mesh)
+        else:
+            frame_step = build_frame_step(scene, cfg, encode, renderer,
+                                          mesh)
+        sync = (FrameSync(device) if mesh is not None
+                and dist.get_world_size() > 1 else None)
+        if sync is not None and dist.get_rank() != 0:
+            while (msg := sync.follow()) is not None:
+                frame_step(msg[0], torch.as_tensor(msg[1], dtype=cfg.dtype,
+                                                   device=device))
+            return 0.0
+        try:
+            return _animate(cfg, frame_step, sync, max_frames, interactive,
+                            encode, stats, pipeline, device, stream, timers)
+        finally:
+            if sync is not None:
+                sync.stop()
 
+
+def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
+             encode, stats, pipeline, device, stream, timers) -> float:
+    """``run_animation``'s loop on the rank that writes the frames; with a
+    ``FrameSync`` it broadcasts each frame's time and camera offset to the
+    other ranks first."""
     cam_offset = np.zeros(3, np.float64)
     offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
     meter = FrameMeter()
@@ -285,16 +429,19 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                         offset_dev = torch.as_tensor(
                             cam_offset, dtype=cfg.dtype, device=device)
                 issued += 1
+                t = t0 - start
+                if sync is not None:
+                    sync.lead(t, cam_offset)
                 if pool is not None:
                     pending.append(pool.submit(
-                        _to_host, frame_step(t0 - start, offset_dev)))
+                        _to_host, frame_step(t, offset_dev)))
                     if len(pending) <= pipeline:
                         continue  # fill the pipeline before first emit
                     with timers.stage("render+copy"):
                         buf = pending.popleft().result()
                 else:
                     with timers.stage("render+copy"):
-                        buf = _to_host(frame_step(t0 - start, offset_dev))
+                        buf = _to_host(frame_step(t, offset_dev))
                 emit(buf)
                 dt_frame = max(time.monotonic() - t0, 1e-9)
                 fps = 1.0 / dt_frame
@@ -315,26 +462,36 @@ def render_still(cfg: RenderConfig, skybox_name: str, t: float,
                  out_path: str, *, device="cuda",
                  scene: Scene | MeshScene | None = None,
                  renderer: str = "auto", pathtrace: bool = False,
-                 seed: int = 0) -> None:
+                 seed: int = 0, mesh_spec: str | None = None) -> None:
     """Render one frame at time t and write it as PPM (or PNG/JPEG/BMP by
     extension, when PIL is installed). ``scene`` defaults to the demo
     scene. With ``pathtrace`` the frame comes from the eager Monte-Carlo
     estimator seeded with ``seed``, as the JAX app's still does
-    (app.py:826-830)."""
-    if scene is None:
-        scene = make_scene("demo", cfg, skybox_name, device=device)
-    device = scene.spheres.radius.device
-    frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-    if pathtrace:
-        _check_f64_mesh_on_cpu(scene, cfg)
-        fb = estimator.pathtrace_frame(
-            scene.with_camera_frame(frame),
-            estimator.default_area_lights(cfg, device), cfg,
-            _frame_generator(seed, device))
-    else:
-        render_fn = _pick_renderer(scene, cfg, renderer)
-        fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
-                          count_rays=False)
+    (app.py:826-830). ``mesh_spec`` renders it over a device mesh
+    (app.py:774-824; the estimator's ranks each draw their own stream);
+    rank 0 writes the file."""
+    mesh_ctx, device = _mesh_context(mesh_spec, scene, device)
+    with mesh_ctx as mesh:
+        if scene is None:
+            scene = make_scene("demo", cfg, skybox_name, device=device)
+        device = scene.spheres.radius.device
+        s = scene.with_camera_frame(
+            orbit_camera_frame(t, dtype=cfg.dtype, device=device))
+        if pathtrace:
+            _check_f64_mesh_on_cpu(scene, cfg)
+            lights = estimator.default_area_lights(cfg, device)
+            if mesh is None:
+                fb = estimator.pathtrace_frame(
+                    s, lights, cfg, _frame_generator(seed, device))
+            else:
+                sharding.check_pathtrace_mesh(cfg, mesh)
+                fb = sharding.pathtrace_frame_sharded(s, lights, cfg, seed,
+                                                      mesh)
+        else:
+            fb, _ = _pick(scene, cfg, renderer, mesh)(s, cfg,
+                                                      count_rays=False)
+        if mesh is not None and dist.get_rank() != 0:
+            return
     rgb = _to_host(encode_rgb_frame(fb))
     if out_path.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")):
         from PIL import Image
@@ -402,6 +559,15 @@ def main(argv=None) -> int:
                    help="float64 compute through the eager integrator "
                         "(with --scene many on --device cpu only: the "
                         "card's nearest-hit kernel is float32)")
+    p.add_argument("--mesh", metavar="RxS[xO]", default=None,
+                   help="render over a device mesh of ranks (torchrun "
+                        "--nproc-per-node R*S*O, one device a rank; without "
+                        "a launcher, one rank): 'auto' (every rank on the "
+                        "rows axis), ROWSxSAMPLES (e.g. 4x2: rows shard "
+                        "image bands, samples shard AA rays) or "
+                        "ROWSxSAMPLESxOBJECTS (e.g. 2x2x2: adds the "
+                        "geometry axis for --scene many); the shape must "
+                        "tile the ranks")
     p.add_argument("--renderer", choices=list(RENDERERS), default="auto",
                    help="render path: a kernel or the eager integrator "
                         "(with --pathtrace: the eager estimator); auto "
@@ -435,18 +601,21 @@ def main(argv=None) -> int:
             raise ConfigError(
                 "--energy-model subtract applies to the reflection "
                 "integrator, not --pathtrace")
-        scene = make_scene(args.scene, cfg, args.skybox, device=args.device,
+        device = (args.device if args.mesh is None
+                  else pmesh.local_device(args.device))
+        scene = make_scene(args.scene, cfg, args.skybox, device=device,
                            n_spheres=args.n_spheres)
         if args.still:
             render_still(cfg, args.skybox, args.time, args.still,
                          scene=scene, renderer=args.renderer,
-                         pathtrace=args.pathtrace, seed=args.seed)
+                         pathtrace=args.pathtrace, seed=args.seed,
+                         mesh_spec=args.mesh)
             return 0
         run_animation(cfg, args.skybox, args.frames,
                       interactive=not args.no_input, encode=args.encode,
                       scene=scene, stats=args.stats, pipeline=args.pipeline,
                       renderer=args.renderer, pathtrace=args.pathtrace,
-                      seed=args.seed)
+                      seed=args.seed, mesh_spec=args.mesh)
         return 0
     except (assets.AssetError, ConfigError) as e:
         # user errors: one line, no traceback (the reference exits with a

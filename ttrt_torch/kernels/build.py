@@ -101,13 +101,11 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ttrt_render_limits.restype = None
-    lib.ttrt_render_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, specular,
-    # subtract, sky_kind, sky_dim, bilinear, texels, pixel_rate, out_rgb,
-    # out_count, stream
+    # scene_buf, n_sph, n_dl, n_pl, W, H, N, n_rows, n_samples,
+    # bounce_limit, specular, subtract, sky_kind, sky_dim, bilinear, texels,
+    # scale, pixel_rate, out_rgb, out_count, stream
     lib.ttrt_render.restype = ctypes.c_int
-    lib.ttrt_render.argtypes = [p] + [i] * 12 + [p, i, p, p, p]
+    lib.ttrt_render.argtypes = [p] + [i] * 14 + [p, f, i, p, p, p]
     # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w, stream
     lib.ttrt_sky_weights.restype = ctypes.c_int
     lib.ttrt_sky_weights.argtypes = [p] + [i] * 7 + [p, p]
@@ -123,11 +121,9 @@ def load() -> ctypes.CDLL:
     lib.ttrt_cluster_nearest.restype = ctypes.c_int
     lib.ttrt_cluster_nearest.argtypes = ([p] * 6 + [i] + [p] * 5
                                          + [i, i, i, p, p, p])
-    lib.ttrt_pathtrace_limits.restype = None
-    lib.ttrt_pathtrace_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     # scene_buf, n_sph, n_al, W, H, N, bounce_limit, sky_kind, sky_dim,
-    # bilinear, seed, out_rgb, out_count, stream
+    # bilinear, reduce_sum, seed, out_rgb, out_count, stream
     lib.ttrt_pathtrace.restype = ctypes.c_int
-    lib.ttrt_pathtrace.argtypes = ([p] + [i] * 9 + [ctypes.c_uint32]
+    lib.ttrt_pathtrace.argtypes = ([p] + [i] * 10 + [ctypes.c_uint32]
                                    + [p, p, p])
     return lib

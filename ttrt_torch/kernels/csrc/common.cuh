@@ -21,8 +21,6 @@ namespace {
 constexpr int CAM_FLOATS = 17;
 constexpr int DLIGHT_FLOATS = 6;
 constexpr int PLIGHT_FLOATS = 7;
-constexpr int MAX_DLIGHTS = 8;
-constexpr int MAX_PLIGHTS = 8;
 
 constexpr double PI_D = 3.14159265358979323846;
 constexpr float PI_F = (float)PI_D;
@@ -436,10 +434,10 @@ __device__ void render_pixel(const Tracer& tr, const Lights& L,
 
 constexpr int SPHERE_FLOATS = 9;
 constexpr int PLANE_FLOATS = 16;
-constexpr int MAX_SPHERES = 64;
 // The demo scene's tracer for render_pixel (render.cu) and the path
-// tracer (pathtrace.cu): a linear scan of the spheres, then the ground
-// plane, all in shared memory.
+// tracer (pathtrace.cu): a linear scan of any number of spheres in index
+// order, then the ground plane, read from shared memory or, for a scene
+// too large for it, from the global scene buffer.
 struct DemoTracer {
   const float* sph;
   const float* plane;

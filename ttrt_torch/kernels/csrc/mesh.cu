@@ -315,8 +315,10 @@ struct MeshTracer {
   }
 };
 
-constexpr int LIGHT_FLOATS =
-    CAM_FLOATS + DLIGHT_FLOATS * MAX_DLIGHTS + PLIGHT_FLOATS * MAX_PLIGHTS;
+// The camera and the lights go into dynamic shared memory up to this size
+// (no opt-in attribute needed): thousands of lights. More are read in place
+// from their global arrays.
+constexpr size_t SMEM_LIGHT_BYTES = 48 * 1024;
 
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
 mesh_fused_kernel(const float* __restrict__ cam_in,
@@ -324,18 +326,29 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
                   const float* __restrict__ pl_in, int n_pl, MeshGeom g,
                   int W, int H, int N, int n_rows, int n_samples,
                   int bounce_limit, int specular, int subtract, Sky sky,
-                  float scale,
+                  float scale, int smem,
                   float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
-  __shared__ float sbuf[LIGHT_FLOATS];
-  const int tid = threadIdx.y * TILE_X + threadIdx.x;
+  extern __shared__ float sbuf[];
   const int n_dlf = DLIGHT_FLOATS * n_dl, n_plf = PLIGHT_FLOATS * n_pl;
-  for (int i = tid; i < CAM_FLOATS + n_dlf + n_plf; i += TILE_X * TILE_Y) {
-    sbuf[i] = i < CAM_FLOATS ? cam_in[i]
-              : i < CAM_FLOATS + n_dlf ? dl_in[i - CAM_FLOATS]
-                                       : pl_in[i - CAM_FLOATS - n_dlf];
+  const float* cam = cam_in;
+  Lights L;
+  L.dl = dl_in;
+  L.pl = pl_in;
+  L.n_dl = n_dl;
+  L.n_pl = n_pl;
+  if (smem) {
+    const int tid = threadIdx.y * TILE_X + threadIdx.x;
+    for (int i = tid; i < CAM_FLOATS + n_dlf + n_plf; i += TILE_X * TILE_Y) {
+      sbuf[i] = i < CAM_FLOATS ? cam_in[i]
+                : i < CAM_FLOATS + n_dlf ? dl_in[i - CAM_FLOATS]
+                                         : pl_in[i - CAM_FLOATS - n_dlf];
+    }
+    __syncthreads();
+    cam = sbuf;
+    L.dl = sbuf + CAM_FLOATS;
+    L.pl = L.dl + n_dlf;
   }
-  __syncthreads();
 
   const int col = blockIdx.x * TILE_X + threadIdx.x;
   const int row = blockIdx.y * TILE_Y + threadIdx.y;
@@ -343,15 +356,10 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
 
   MeshTracer tr;
   tr.g = g;
-  Lights L;
-  L.dl = sbuf + CAM_FLOATS;
-  L.pl = L.dl + n_dlf;
-  L.n_dl = n_dl;
-  L.n_pl = n_pl;
 
   float acc_r, acc_g, acc_b;
   int bounces, hits;
-  render_pixel(tr, L, sbuf, col, row, W, H, N, n_samples, bounce_limit,
+  render_pixel(tr, L, cam, col, row, W, H, N, n_samples, bounce_limit,
                specular != 0, subtract != 0, sky, acc_r, acc_g, acc_b,
                bounces, hits);
   const int n_pixels = W * n_rows;
@@ -423,7 +431,7 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
                     int subtract, int sky_kind, int sky_dim, int bilinear,
                     const int* texels, float scale, float* out_rgb,
                     int* out_count, void* stream) {
-  if (n_dl < 0 || n_dl > MAX_DLIGHTS || n_pl < 0 || n_pl > MAX_PLIGHTS ||
+  if (n_dl < 0 || n_pl < 0 ||
       W < 1 || H < 1 || N < 1 || n_rows < 1 || n_samples < 1 ||
       kb_sph < 0 || kb_tri < 0 || sky_dim < 1 || sky_kind < SKY_COLORS ||
       sky_kind > SKY_IMAGE || (sky_kind == SKY_IMAGE && texels == nullptr))
@@ -432,11 +440,15 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
   const MeshGeom g =
       make_geom(sph, sph_mat, sph_spec, sph_id, tri, tri_nrm, tri_mat,
                 tri_spec, tri_id, qbox, order, kb_sph, kb_tri, true);
+  const size_t bytes =
+      sizeof(float) * ((size_t)CAM_FLOATS + (size_t)DLIGHT_FLOATS * n_dl +
+                       (size_t)PLIGHT_FLOATS * n_pl);
+  const bool smem = bytes <= SMEM_LIGHT_BYTES;
   const dim3 block(TILE_X, TILE_Y);
   const dim3 grid((W + TILE_X - 1) / TILE_X, (n_rows + TILE_Y - 1) / TILE_Y);
-  mesh_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  mesh_fused_kernel<<<grid, block, smem ? bytes : 0, (cudaStream_t)stream>>>(
       cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, bounce_limit,
-      specular, subtract, sky, scale, out_rgb, out_count);
+      specular, subtract, sky, scale, smem ? 1 : 0, out_rgb, out_count);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,10 @@
 // Monte-Carlo path-tracing kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ttrt/kernels/pathtrace_pallas.py::_pathtrace_kernel
-// (:101, launched at :322), procedural sky, nearest or bilinear. Its plain
+// (:101, launched at :322), procedural sky, nearest or bilinear, with the
+// frame's reduce modes of pathtrace_frame_pallas (:334): the clipped mean,
+// or the unclipped sample sum (:372-376) that the sharded renderer adds up
+// across devices before one divide and clip. Its plain
 // PyTorch version is ttrt_torch/kernels/pathtrace.py::pathtrace_frame_plain,
 // which mirrors this math op for op.
 //
@@ -17,12 +20,14 @@
 // draw equals the Pallas lane's; u01 takes the 24 high bits, exact in float.
 //
 // Design: one thread per pixel, 1-D blocks of 128. The scene (camera,
-// spheres, plane) and the area lights go into shared memory once a block.
+// spheres, plane) and the area lights, any number of spheres, go into
+// shared memory once a block when they fit in 48 KB, else they are read in
+// place.
 // Each thread loops over its N samples in order and, per sample, over the
 // bounces with a real loop that exits once the path is dead (a dead path
 // changes no accumulator, so the exit is exact). It writes the (3, H, W)
-// mean of its samples, summed in sample order, divided by N and clipped to
-// [0, 1], and its work: nearest-hit traces | hits << 16, and the NEE
+// sum of its samples in sample order, divided by N and clipped to [0, 1]
+// (or left as it is, SUM), and its work: nearest-hit traces | hits << 16, and the NEE
 // shadow rays that found the light unblocked. None of the TPU kernel's
 // shape is kept: no unrolled bounce chain, no (16, 128) ray tiles, no SMEM
 // scalar tables.
@@ -48,10 +53,13 @@
 namespace {
 
 constexpr int AL_FLOATS = 8;  // position 3, radius, color 3, intensity
+// the NEE purposes 10 + 3*li and 11 + 3*li meet the cosine draw's 40 at an
+// 11th light (pathtrace_pallas.py:355-360)
 constexpr int MAX_AREA_LIGHTS = 10;
-constexpr int MAX_PT_FLOATS = CAM_FLOATS + SPHERE_FLOATS * MAX_SPHERES +
-                              PLANE_FLOATS + AL_FLOATS * MAX_AREA_LIGHTS;
 constexpr int PT_BLOCK = 128;
+// the scene goes into dynamic shared memory up to this size (as in
+// render.cu), else it is read in place
+constexpr size_t SMEM_SCENE_BYTES = 48 * 1024;
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr float TMAX_SCALE = (float)(1.0 - 5e-5);
 // purposes of the draws (pathtrace_pallas.py:157-252)
@@ -89,25 +97,33 @@ struct Rng {
   }
 };
 
+// SMEM: the scene is copied into shared memory, else read in place; the
+// spheres keep their index order either way. SUM: each pixel's unclipped
+// sample sum, else its sample mean clipped to [0, 1].
+template <bool SMEM, bool SUM>
 __global__ void __launch_bounds__(PT_BLOCK)
 pathtrace_kernel(const float* __restrict__ scene_buf, int n_sph, int n_al,
                  int W, int H, int N, int bounce_limit, int sky_kind,
                  int sky_dim, int bilinear, uint32_t seed,
                  float* __restrict__ out_rgb, int* __restrict__ out_count) {
-  __shared__ float sbuf[MAX_PT_FLOATS];
-  const int n_floats = CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS +
-                       AL_FLOATS * n_al;
-  for (int i = threadIdx.x; i < n_floats; i += blockDim.x)
-    sbuf[i] = scene_buf[i];
-  __syncthreads();
+  extern __shared__ float sbuf[];
+  const float* sb = scene_buf;
+  if (SMEM) {
+    const int n_floats = CAM_FLOATS + SPHERE_FLOATS * n_sph + PLANE_FLOATS +
+                         AL_FLOATS * n_al;
+    for (int i = threadIdx.x; i < n_floats; i += blockDim.x)
+      sbuf[i] = scene_buf[i];
+    __syncthreads();
+    sb = sbuf;
+  }
 
   const int n_pixels = W * H;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= n_pixels) return;
 
-  const float* cam = sbuf;
+  const float* cam = sb;
   DemoTracer tr;
-  tr.sph = sbuf + CAM_FLOATS;
+  tr.sph = sb + CAM_FLOATS;
   tr.plane = tr.sph + SPHERE_FLOATS * n_sph;
   tr.n_sph = n_sph;
   const float* al = tr.plane + PLANE_FLOATS;
@@ -213,10 +229,16 @@ pathtrace_kernel(const float* __restrict__ scene_buf, int n_sph, int n_al,
     acc_g = acc_g + fmaf(sky_w[1], sky[1], rad[1]);
     acc_b = acc_b + fmaf(sky_w[2], sky[2], rad[2]);
   }
-  const float fN = (float)N;
-  out_rgb[pix] = clamp01(acc_r / fN);
-  out_rgb[n_pixels + pix] = clamp01(acc_g / fN);
-  out_rgb[2 * n_pixels + pix] = clamp01(acc_b / fN);
+  if (SUM) {
+    out_rgb[pix] = acc_r;
+    out_rgb[n_pixels + pix] = acc_g;
+    out_rgb[2 * n_pixels + pix] = acc_b;
+  } else {
+    const float fN = (float)N;
+    out_rgb[pix] = clamp01(acc_r / fN);
+    out_rgb[n_pixels + pix] = clamp01(acc_g / fN);
+    out_rgb[2 * n_pixels + pix] = clamp01(acc_b / fN);
+  }
   out_count[pix] = nearest | (hits << 16);
   out_count[n_pixels + pix] = unblocked;
 }
@@ -225,28 +247,33 @@ pathtrace_kernel(const float* __restrict__ scene_buf, int n_sph, int n_al,
 
 extern "C" {
 
-// Largest sphere and area-light counts the kernel's shared memory holds.
-void ttrt_pathtrace_limits(int* out) {
-  out[0] = MAX_SPHERES;
-  out[1] = MAX_AREA_LIGHTS;
-}
-
-// Launch on `stream`; returns cudaGetLastError() (0 on success). The
-// caller allocates `out_rgb` (3*H*W floats) and `out_count` (2*H*W ints).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// `reduce_sum` writes each pixel's unclipped sample sum, else the clipped
+// mean. The caller allocates `out_rgb` (3*H*W floats) and `out_count`
+// (2*H*W ints).
 int ttrt_pathtrace(const float* scene_buf, int n_sph, int n_al, int W, int H,
                    int N, int bounce_limit, int sky_kind, int sky_dim,
-                   int bilinear, uint32_t seed, float* out_rgb,
-                   int* out_count, void* stream) {
-  if (n_sph < 0 || n_sph > MAX_SPHERES || n_al < 0 ||
+                   int bilinear, int reduce_sum, uint32_t seed,
+                   float* out_rgb, int* out_count, void* stream) {
+  if (n_sph < 0 || n_al < 0 ||
       n_al > MAX_AREA_LIGHTS || W < 1 || H < 1 || N < 1 ||
       bounce_limit < 0 || sky_dim < 1 ||
       (sky_kind != SKY_COLORS && sky_kind != SKY_UV_CHECKER) ||
       (long long)W * H * N > 0x7FFFFFFFLL ||
       (long long)N * bounce_limit > 0x7FFF)
     return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      sizeof(float) * ((size_t)CAM_FLOATS + (size_t)SPHERE_FLOATS * n_sph +
+                       PLANE_FLOATS + (size_t)AL_FLOATS * n_al);
+  const bool smem = bytes <= SMEM_SCENE_BYTES;
+  const auto kernel =
+      reduce_sum ? (smem ? pathtrace_kernel<true, true>
+                         : pathtrace_kernel<false, true>)
+                 : (smem ? pathtrace_kernel<true, false>
+                         : pathtrace_kernel<false, false>);
   const int n_pixels = W * H;
   const int grid = (n_pixels + PT_BLOCK - 1) / PT_BLOCK;
-  pathtrace_kernel<<<grid, PT_BLOCK, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, PT_BLOCK, smem ? bytes : 0, (cudaStream_t)stream>>>(
       scene_buf, n_sph, n_al, W, H, N, bounce_limit, sky_kind, sky_dim,
       bilinear, seed, out_rgb, out_count);
   return (int)cudaGetLastError();

@@ -40,10 +40,6 @@ from ttrt_torch.mesh.dense import (_tri_t, chunks, nearest_arrays,
                                    sphere_blocks)
 from ttrt_torch.vec import Vec3
 
-# the kernel keeps the camera and lights in shared memory (csrc/common.cuh)
-MAX_DLIGHTS = 8
-MAX_PLIGHTS = 8
-
 
 def check_supported(scene, cfg: RenderConfig) -> None:
     """The gates of ``render_band_mesh_fused`` (mesh_fused.py:1431-1443)
@@ -211,10 +207,6 @@ def render_band_mesh_fused_cuda(
                          f"CUDA device, got {dev}")
     n_dl = scene.directional_lights.count
     n_pl = scene.point_lights.count
-    if n_dl > MAX_DLIGHTS or n_pl > MAX_PLIGHTS:
-        raise ConfigError(
-            f"the fused mesh kernel takes at most {MAX_DLIGHTS} directional "
-            f"and {MAX_PLIGHTS} point lights; got {n_dl}, {n_pl}")
     tab = pack.tables
     order = order_subclusters(pack, scene.camera.frame.origin)
     cam = pack_camera(scene.camera, torch.float32, row_offset,

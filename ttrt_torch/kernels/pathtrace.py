@@ -13,7 +13,9 @@ surface sample on every spherical area light and an any-hit shadow ray cut
 just short of the sample, a specular-or-cosine-diffuse continuation chosen
 with probability = reflectivity, Russian roulette from bounce 3, and the
 procedural sky at the exit direction weighted by the throughput frozen at
-the miss. The pixel is the mean of its samples, clipped to [0, 1].
+the miss. The pixel is the mean of its samples, clipped to [0, 1], or
+(``reduce='sum'``, pathtrace_pallas.py:372-376, what each device of the
+sharded renderer returns) their unclipped sum.
 
 Every random number is a pure hash of (frame seed, ray index, bounce,
 purpose), as in the JAX kernel:
@@ -37,7 +39,6 @@ kernel's.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -127,7 +128,9 @@ def check_supported(scene, lights, cfg: RenderConfig) -> None:
     345-360) and of the JAX app's kernel route (ttrt/app.py:73-80):
     float32, a procedural sky (the JAX kernel's only kind,
     pathtrace_pallas.py:39-43), the demo ``Scene``, bounce_limit <= 10, at
-    most 10 area lights."""
+    most 10 area lights; and the CUDA kernel's own, spp x bounces <=
+    0x7FFF, because a pixel's work packs its nearest-hit traces | hits <<
+    16. Any sphere count is taken."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the path-tracing kernel is float32-only")
     if type(scene) is not Scene:
@@ -143,6 +146,11 @@ def check_supported(scene, lights, cfg: RenderConfig) -> None:
         raise ConfigError(
             f"the path-tracing kernel supports <= {MAX_AREA_LIGHTS} area "
             "lights")
+    if cfg.rays_per_pixel * cfg.bounce_limit > MAX_PIXEL_TRACES:
+        raise ConfigError(
+            f"the path-tracing kernel takes spp x bounces <= "
+            f"{MAX_PIXEL_TRACES}; got {cfg.rays_per_pixel} x "
+            f"{cfg.bounce_limit}")
 
 
 # ---------------------------------------------------------------------------
@@ -159,14 +167,26 @@ def _uniform_sphere(idx, seed: int, bounce: int, purpose: int):
     return r * torch.cos(phi), r * torch.sin(phi), z
 
 
-def _mean_samples(c, n_samples: int, n_rows: int, width: int):
+REDUCE = ("mean", "sum")
+
+
+def _reduce_samples(c, n_samples: int, n_rows: int, width: int,
+                    reduce: str):
     """Sample-major rays -> (n_rows, W): the in-order sum over the samples,
-    divided by N and clipped to [0, 1]."""
+    divided by N and clipped to [0, 1] (``'mean'``), or as it is
+    (``'sum'``)."""
     c = c.reshape(n_samples, n_rows, width)
     acc = c[0]
     for k in range(1, n_samples):
         acc = acc + c[k]
+    if reduce == "sum":
+        return acc
     return torch.clamp(acc / scalar_like(n_samples, acc), 0.0, 1.0)
+
+
+def _check_reduce(reduce: str) -> None:
+    if reduce not in REDUCE:
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
 
 
 def _paths(scene: Scene, lights, cfg: RenderConfig, seed: int):
@@ -286,19 +306,22 @@ def _paths(scene: Scene, lights, cfg: RenderConfig, seed: int):
 
 
 def pathtrace_frame_plain(scene: Scene, lights, cfg: RenderConfig,
-                          seed: int, *, count_rays: bool = True
+                          seed: int, *, count_rays: bool = True,
+                          reduce: str = "mean"
                           ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """The kernel's math in plain PyTorch on the whole (N*H*W,) ray batch.
-    Returns the (H, W) frame (the per-pixel mean clipped to [0, 1]) and,
+    Returns the (H, W) frame (the per-pixel mean clipped to [0, 1], or
+    with ``reduce='sum'`` the unclipped sample sum) and,
     when ``count_rays``, the frame's work as a (3,) int64 tensor:
     nearest-hit traces, hits, and the NEE shadow rays that found their
     light unblocked. Every hit casts one NEE shadow ray a light, so the
     frame traces ``nearest + hits * n_lights`` rays (``total_traces``)."""
     check_supported(scene, lights, cfg)
+    _check_reduce(reduce)
     pathtrace_frame_plain.launches += 1
     color, work = _paths(scene, lights, cfg, seed)
     W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
-    fb = Vec3(*(_mean_samples(c, N, H, W) for c in color))
+    fb = Vec3(*(_reduce_samples(c, N, H, W, reduce) for c in color))
     return fb, work if count_rays else None
 
 
@@ -318,16 +341,18 @@ def total_traces(work: torch.Tensor, n_lights: int) -> int:
 
 
 def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
-                         *, count_rays: bool = True
+                         *, count_rays: bool = True, reduce: str = "mean"
                          ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Path-trace one frame with the CUDA kernel (csrc/pathtrace.cu): one
-    thread per pixel writes the (3, H, W) clipped sample mean and the
+    thread per pixel writes the (3, H, W) clipped sample mean (or with
+    ``reduce='sum'`` the unclipped sample sum) and the
     pixel's work, nearest-hit traces | hits << 16 and the unblocked NEE
     shadow rays; the frame's work is ``pathtrace_frame_plain``'s. Raises
     on anything the kernel does not take, CPU tensors included."""
     from ttrt_torch.kernels import build
 
     check_supported(scene, lights, cfg)
+    _check_reduce(reduce)
     packed = pack_scene(scene, torch.float32)
     al = pack_area_lights(lights)
     if al.device != packed.cam.device:
@@ -341,24 +366,13 @@ def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
     n_sph, n_al = scene.spheres.count, lights.count
     H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
     lib = build.load()
-    limits = (ctypes.c_int * 2)()
-    lib.ttrt_pathtrace_limits(limits)
-    if n_sph > limits[0]:
-        raise ConfigError(f"the path-tracing kernel takes at most "
-                          f"{limits[0]} spheres; got {n_sph}")
-    if N * cfg.bounce_limit > MAX_PIXEL_TRACES:
-        # a pixel's work packs nearest-hit traces | hits << 16
-        raise ConfigError(
-            f"the path-tracing kernel takes spp x bounces <= "
-            f"{MAX_PIXEL_TRACES}; got {N} x {cfg.bounce_limit}")
-
     out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
     counts = torch.empty((2, H, W), dtype=torch.int32, device=buf.device)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     rc = lib.ttrt_pathtrace(
         buf.data_ptr(), n_sph, n_al, W, H, N, cfg.bounce_limit,
         SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        int(cfg.skybox_bilinear), seed & MASK32,
+        int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
         out.data_ptr(), counts.data_ptr(), stream,
     )
     if rc != 0:
@@ -377,11 +391,11 @@ pathtrace_frame_cuda.launches = 0
 
 
 def pathtrace_frame(scene: Scene, lights, cfg: RenderConfig, seed: int, *,
-                    count_rays: bool = True
+                    count_rays: bool = True, reduce: str = "mean"
                     ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Path-trace one frame on the device that holds the scene: the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = (pathtrace_frame_plain
           if scene.spheres.radius.device.type == "cpu"
           else pathtrace_frame_cuda)
-    return fn(scene, lights, cfg, seed, count_rays=count_rays)
+    return fn(scene, lights, cfg, seed, count_rays=count_rays, reduce=reduce)

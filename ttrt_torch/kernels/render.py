@@ -1,19 +1,23 @@
 """The demo-scene render kernels: scene packing, the CUDA wrappers, and
 their plain PyTorch versions (port of ``ttrt/kernels/render_pallas.py``).
 
-Three entry points, each dispatching on the device of the scene's tensors
+Four entry points, each dispatching on the device of the scene's tensors
 (CPU tensors go through the plain version; CUDA tensors through the
 wrapper, which launches its hand-written kernel in ``csrc/render.cu`` or
 raises; there is no fallback from one to the other):
 
 - ``render_frame``: the frame, under a procedural sky or an image cubemap,
   nearest or bilinear (``_render_kernel``, render_pallas.py:894);
+- ``render_band``: a band of its rows x a slice of its AA samples, the
+  samples averaged or summed (``render_band_pallas``, :1357): each
+  device's share of a sharded frame (``parallel/sharding.py``);
 - ``render_frame_pixel_rate``: the same frame with its counts summed per
   pixel in 16|16 fields (``_render_kernel_acc``, :612);
 - ``sky_weights``: the per-ray sky weight of the bounce chain, with no
   lighting (``_sky_weight_kernel``, :860).
 
-``render_frame_plain`` mirrors the kernel's math op for op, as the JAX
+``render_band_plain`` (and its whole frame, ``render_frame_plain``)
+mirrors the kernel's math op for op, as the JAX
 kernel ``_render_kernel`` (render_pallas.py:894) computes it: the same
 sample-major ray order, the same restructured predicates (sqrt-free hit
 tests, a shared ``0.5/a``, normalize by multiplying with the reciprocal
@@ -52,7 +56,6 @@ fold, up to an ulp away from the oracle).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -737,10 +740,55 @@ def _finish_frame(pr, pg, pb, total, sky_w, count, dx, dy, dz, scene,
             traces.sum(dtype=torch.int64))
 
 
-def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True):
-    """The demo frame's rays through ``_bounce_chain``, sample-major:
-    returns its outputs and the scene's light count."""
-    packed = pack_scene(scene, torch.float32)
+class Band(NamedTuple):
+    """Rows [row_offset, row_offset + n_rows) and AA samples
+    [sample_offset, sample_offset + n_samples) of a W x H x N frame, and
+    the reduction of each pixel's samples: ``'avg'`` scales their sum by
+    float32(1/N), the frame's N, ``'sum'`` leaves it
+    (``render_band_pallas``, render_pallas.py:1357-1402)."""
+
+    row_offset: int
+    n_rows: int
+    sample_offset: int
+    n_samples: int
+    reduce: str = "avg"
+
+    @staticmethod
+    def whole(cfg: RenderConfig) -> "Band":
+        return Band(0, cfg.height, 0, cfg.rays_per_pixel)
+
+    @staticmethod
+    def of(cfg: RenderConfig, row_offset: int = 0,
+           n_rows: Optional[int] = None, sample_offset: int = 0,
+           n_samples: Optional[int] = None, reduce: str = "avg") -> "Band":
+        """The band, checked against the frame: raises ValueError when it
+        does not lie inside it or ``reduce`` is unknown."""
+        H, N = cfg.height, cfg.rays_per_pixel
+        n_rows = H - row_offset if n_rows is None else n_rows
+        n_samples = N - sample_offset if n_samples is None else n_samples
+        if reduce not in ("avg", "sum"):
+            raise ValueError(f"reduce must be 'avg' or 'sum', got {reduce!r}")
+        if not (0 <= row_offset and 1 <= n_rows and row_offset + n_rows <= H
+                and 0 <= sample_offset and 1 <= n_samples
+                and sample_offset + n_samples <= N):
+            raise ValueError(
+                f"band rows {row_offset}+{n_rows}, samples "
+                f"{sample_offset}+{n_samples} outside the {H}-row, "
+                f"{N}-sample frame")
+        return Band(row_offset, n_rows, sample_offset, n_samples, reduce)
+
+    def scale(self, cfg: RenderConfig) -> float:
+        return 1.0 / cfg.rays_per_pixel if self.reduce == "avg" else 1.0
+
+
+def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True,
+                band: Optional[Band] = None):
+    """The rays of the demo frame, or of its ``band``, through
+    ``_bounce_chain``, sample-major: returns its outputs and the scene's
+    light count."""
+    band = Band.whole(cfg) if band is None else band
+    packed = pack_scene(scene, torch.float32, band.row_offset,
+                        band.sample_offset)
     sph_vals = _tuples(packed.spheres, SPHERE_FLOATS)
     plane_vals = tuple(packed.plane[i] for i in range(PLANE_FLOATS))
     dl_vals = _tuples(packed.dlights, DLIGHT_FLOATS)
@@ -755,7 +803,8 @@ def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True):
         return lambda lx, ly, lz, tmax: _shadow_any_hit(
             px, py, pz, lx, ly, lz, tmax, oc_terms, plane_vals)
 
-    ox, oy, oz, dx, dy, dz = _gen_primary_rays(packed.cam, cfg)
+    ox, oy, oz, dx, dy, dz = _gen_primary_rays(packed.cam, cfg, band.n_rows,
+                                               band.n_samples)
     chain = _bounce_chain(
         ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals, pl_vals,
         cfg.bounce_limit, cfg.specular, cfg.energy_model == "subtract",
@@ -763,23 +812,43 @@ def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True):
     return chain, len(dl_vals) + len(pl_vals)
 
 
-def _demo_frame(scene: Scene, cfg: RenderConfig):
-    """The demo frame in plain PyTorch: the (H, W) framebuffer, its trace
-    count and the per-ray packed counts (bounces | hits << 5)."""
-    chain, n_lights = _demo_chain(scene, cfg)
-    fb, traces = _finish_frame(
-        *chain, scene, cfg, cfg.height, cfg.rays_per_pixel,
-        1.0 / cfg.rays_per_pixel, n_lights)
+def _demo_frame(scene: Scene, cfg: RenderConfig,
+                band: Optional[Band] = None):
+    """The demo frame, or its ``band``, in plain PyTorch: the (n_rows, W)
+    framebuffer, its trace count and the per-ray packed counts (bounces |
+    hits << 5)."""
+    band = Band.whole(cfg) if band is None else band
+    chain, n_lights = _demo_chain(scene, cfg, band=band)
+    fb, traces = _finish_frame(*chain, scene, cfg, band.n_rows,
+                               band.n_samples, band.scale(cfg), n_lights)
     return fb, traces, chain[5]
+
+
+def render_band_plain(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
+                      n_rows: Optional[int] = None, *, sample_offset: int = 0,
+                      n_samples: Optional[int] = None, reduce: str = "avg",
+                      count_rays: bool = True
+                      ) -> Tuple[Vec3, Optional[torch.Tensor]]:
+    """The kernel's math in plain PyTorch on whole ray batches, for a band
+    of the frame (``Band``; the whole frame by default): returns the
+    (n_rows, W) framebuffer and the band's trace count (bounces + hits x
+    n_lights, render_pallas.py:1050-1057), or None for the count when
+    ``count_rays`` is False."""
+    check_supported(scene, cfg)
+    band = Band.of(cfg, row_offset, n_rows, sample_offset, n_samples, reduce)
+    render_band_plain.launches += 1
+    fb, traces, _ = _demo_frame(scene, cfg, band)
+    return fb, traces if count_rays else None
+
+
+render_band_plain.launches = 0
 
 
 def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
                        count_rays: bool = True
                        ) -> Tuple[Vec3, Optional[torch.Tensor]]:
-    """The kernel's math in plain PyTorch on whole ray batches: returns the
-    (H, W) framebuffer and the frame's trace count (bounces + hits x
-    n_lights, render_pallas.py:1050-1057), or None for the count when
-    ``count_rays`` is False."""
+    """The whole-frame band of ``render_band_plain``: the (H, W) sample
+    average and its trace count."""
     check_supported(scene, cfg)
     render_frame_plain.launches += 1
     fb, traces, _ = _demo_frame(scene, cfg)
@@ -841,13 +910,12 @@ sky_weights_plain.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _scene_buffer(scene: Scene, name: str):
-    """The packed scene as one contiguous float32 CUDA buffer, checked
-    against the kernels' shared-memory limits: (buf, n_sph, n_dl, n_pl).
-    Raises on CPU tensors."""
-    from ttrt_torch.kernels import build
-
-    packed = pack_scene(scene, torch.float32)
+def _scene_buffer(scene: Scene, name: str, row_offset: int = 0,
+                  sample_offset: int = 0):
+    """The packed scene, the camera row carrying a band's offsets, as one
+    contiguous float32 CUDA buffer: (buf, n_sph, n_dl, n_pl). The kernels
+    take any sphere and light count. Raises on CPU tensors."""
+    packed = pack_scene(scene, torch.float32, row_offset, sample_offset)
     buf = torch.cat(list(packed)).contiguous()
     if buf.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {buf.device}")
@@ -859,13 +927,6 @@ def _scene_buffer(scene: Scene, name: str):
     if buf.dtype != torch.float32 or buf.numel() != expected:
         raise ValueError(f"packed scene must be {expected} float32 values, "
                          f"got {buf.numel()} {buf.dtype}")
-    limits = (ctypes.c_int * 3)()
-    build.load().ttrt_render_limits(limits)
-    if n_sph > limits[0] or n_dl > limits[1] or n_pl > limits[2]:
-        raise ConfigError(
-            f"the render kernel takes at most {limits[0]} spheres, "
-            f"{limits[1]} directional and {limits[2]} point lights; got "
-            f"{n_sph}, {n_dl}, {n_pl}")
     return buf, n_sph, n_dl, n_pl
 
 
@@ -880,37 +941,63 @@ def sky_table(skybox, device) -> torch.Tensor:
 
 
 def _launch_render(scene: Scene, cfg: RenderConfig, name: str,
-                   pixel_rate: bool):
-    """Launch ``render_kernel`` (csrc/render.cu): returns the (3, H, W)
-    frame and the per-pixel counts (trace counts, or with ``pixel_rate``
-    the 16|16 sums)."""
+                   pixel_rate: bool, band: Optional[Band] = None):
+    """Launch ``render_kernel`` (csrc/render.cu) on ``band`` (the whole
+    frame by default): returns the (3, n_rows, W) band and the per-pixel
+    counts (trace counts, or with ``pixel_rate`` the 16|16 sums)."""
     from ttrt_torch.kernels import build
 
-    buf, n_sph, n_dl, n_pl = _scene_buffer(scene, name)
+    band = Band.whole(cfg) if band is None else band
+    buf, n_sph, n_dl, n_pl = _scene_buffer(scene, name, band.row_offset,
+                                           band.sample_offset)
     texels = sky_table(scene.skybox, buf.device)
     H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-    out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
-    counts = torch.empty((H, W), dtype=torch.int32, device=buf.device)
+    out = torch.empty((3, band.n_rows, W), dtype=torch.float32,
+                      device=buf.device)
+    counts = torch.empty((band.n_rows, W), dtype=torch.int32,
+                         device=buf.device)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     rc = build.load().ttrt_render(
-        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, cfg.bounce_limit,
-        int(cfg.specular), int(cfg.energy_model == "subtract"),
-        sky_kind(scene.skybox), scene.skybox.dim, int(cfg.skybox_bilinear),
-        texels.data_ptr(), int(pixel_rate), out.data_ptr(),
-        counts.data_ptr(), stream,
+        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, band.n_rows,
+        band.n_samples, cfg.bounce_limit, int(cfg.specular),
+        int(cfg.energy_model == "subtract"), sky_kind(scene.skybox),
+        scene.skybox.dim, int(cfg.skybox_bilinear), texels.data_ptr(),
+        band.scale(cfg), int(pixel_rate), out.data_ptr(), counts.data_ptr(),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
     return out, counts
 
 
+def render_band_cuda(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
+                     n_rows: Optional[int] = None, *, sample_offset: int = 0,
+                     n_samples: Optional[int] = None, reduce: str = "avg",
+                     count_rays: bool = True
+                     ) -> Tuple[Vec3, Optional[torch.Tensor]]:
+    """Render a band of the frame (``Band``) with the CUDA kernel
+    (csrc/render.cu): one thread per pixel of the band writes its sample
+    average or sum and its trace count. Raises on anything the kernel does
+    not take, CPU tensors included."""
+    check_supported(scene, cfg)
+    band = Band.of(cfg, row_offset, n_rows, sample_offset, n_samples, reduce)
+    out, counts = _launch_render(scene, cfg, "render_band_cuda", False, band)
+    render_band_cuda.launches += 1
+    fb = Vec3(out[0], out[1], out[2])
+    return fb, counts.sum(dtype=torch.int64) if count_rays else None
+
+
+render_band_cuda.launches = 0
+
+
 def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
                       count_rays: bool = True
                       ) -> Tuple[Vec3, Optional[torch.Tensor]]:
-    """Render one frame with the CUDA kernel (csrc/render.cu): one thread
-    per pixel writes the (3, H, W) sample average and the pixel's trace
-    count. Raises on anything the kernel does not take, CPU tensors
-    included; the count is summed only when ``count_rays`` is set."""
+    """Render one frame with the CUDA kernel (csrc/render.cu), the
+    whole-frame band of ``render_band_cuda``: one thread per pixel writes
+    the (3, H, W) sample average and the pixel's trace count. Raises on
+    anything the kernel does not take, CPU tensors included; the count is
+    summed only when ``count_rays`` is set."""
     check_supported(scene, cfg)
     out, counts = _launch_render(scene, cfg, "render_frame_cuda", False)
     render_frame_cuda.launches += 1
@@ -964,6 +1051,16 @@ sky_weights_cuda.launches = 0
 
 def _on_cpu(scene) -> bool:
     return scene.spheres.radius.device.type == "cpu"
+
+
+def render_band(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
+                n_rows: Optional[int] = None, **kw
+                ) -> Tuple[Vec3, Optional[torch.Tensor]]:
+    """Render a band of the frame (``Band``) on the device that holds the
+    scene: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors."""
+    fn = render_band_plain if _on_cpu(scene) else render_band_cuda
+    return fn(scene, cfg, row_offset, n_rows, **kw)
 
 
 def render_frame(scene: Scene, cfg: RenderConfig, *,
