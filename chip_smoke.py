@@ -39,16 +39,26 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
      frame each with --specular, --energy-model subtract and --bilinear
      ('uv_checker'). Bar: the
      phase-2 bar and equal trace counts; max |d| and the differing pixels
-     are printed (they are expected to be 0).
+     are printed (they are expected to be 0). Then FUSED_CASES at reduced
+     sizes, bit for bit: bands of rows and sample slices (1, 3, 5 of 10
+     samples, summed or averaged), sides that are no multiple of a block,
+     33 samples (two rounds of sample threads), --specular, subtract, the
+     milky_way sky bilinear, and 240,000 spheres at 2 and 33 samples (the
+     boxes read in place): every instantiation the launch can choose.
   B. cluster_nearest ("cull" and "dense") vs the dense tester on the
      frame's primary rays and on one bounce's rays: t bit-equal, ids equal.
   C. the fused kernel vs the JAX oracle stored in
      tests/data/torch_port_golden_mesh.npz, with phase 3's bar.
   D. timing with CUDA events: the fused kernel alone and with its wrapper
-     (visit order and packing), the plain version, one line at 100k
-     spheres, and cluster_nearest on the primary rays; each kernel's bound,
-     from the narrow tests its traces need (for the fused kernel, every
-     trace of the frame, counted on one more run of the plain version).
+     (visit order and packing), the plain version, the kernel alone and
+     with its wrapper at 100k spheres, and cluster_nearest on the primary
+     rays; each kernel's bound, from the narrow tests its traces need (for
+     the fused kernel, every trace of the frame, counted on one more run of
+     the plain version); the fused kernel's launch shape at 10k and 100k
+     spheres (blocks, threads, waves, registers) and its ptxas lines; the
+     10k frame as ten one-sample sum bands launched together on ten
+     streams against the one launch (well under 1 would say the one
+     launch leaves the card idle) and one one-sample band alone.
   E. the main paths of the many-object tier: 30 frames of run_animation
      (the fused kernel) and 2 frames with --renderer eager (the integrator,
      tracing through cluster_nearest), each with the launch counts set to
@@ -152,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -202,6 +213,62 @@ PT_MEAN_TOL = 1e-3
 # The eager estimator against the kernel: two random streams, one
 # estimator; image means of 10-sample frames (tests/test_pathtrace_pallas.py)
 PT_ESTIMATOR_MEAN_TOL = 0.01
+
+
+class FusedCase(NamedTuple):
+    """A band of the many-object scene (t = 3.3) for the fused kernel
+    against its plain version: ``config`` the RenderConfig's fields,
+    ``band`` render_band_mesh_fused's row and sample arguments, ``staged``
+    whether the kernel stages the quarter boxes in shared memory,
+    ``rounds`` whether a pixel's samples take more than one round of its
+    sample threads (the four instantiations of mesh_fused_kernel)."""
+
+    key: str
+    label: str
+    spheres: int
+    sky: str
+    config: dict
+    band: dict
+    staged: bool = True
+    rounds: bool = False
+
+
+# The fused kernel's launch shapes that phase A's full-size frames do not
+# take, at sizes where the plain version runs in seconds (phase A and
+# tests/test_torch_cuda_mesh.py). 240,000 spheres make a box table of
+# 248,032 bytes, past a block's 232,448 bytes of shared memory: the
+# kernel's other instantiations read the boxes in place.
+FUSED_CASES = (
+    FusedCase("odd", "97x41, 3 spp: neither side a multiple of a block",
+              2240, "colors", {"width": 97, "height": 41,
+                               "rays_per_pixel": 3}, {}),
+    FusedCase("one_sample", "rows 7-29 of 61x37, sample 4 of 10, summed",
+              2240, "colors", {"width": 61, "height": 37},
+              {"row_offset": 7.0, "n_rows": 23, "sample_offset": 4.0,
+               "n_samples": 1, "reduce": "sum"}),
+    FusedCase("three_samples", "samples 2-4 of 10", 2240, "colors",
+              {"width": 61, "height": 37},
+              {"sample_offset": 2.0, "n_samples": 3}),
+    FusedCase("specular", "10 spp, specular", 2240, "colors",
+              {"width": 61, "height": 37, "specular": True}, {}),
+    FusedCase("subtract", "10 spp, energy model subtract", 2240, "colors",
+              {"width": 61, "height": 37, "energy_model": "subtract"}, {}),
+    FusedCase("image_sky", "milky_way bilinear, samples 5-9 summed", 2240,
+              "milky_way", {"width": 61, "height": 37,
+                            "skybox_bilinear": True},
+              {"sample_offset": 5.0, "n_samples": 5, "reduce": "sum"}),
+    FusedCase("rounds", "33 spp: rounds of 17 and 16 sample threads", 2240,
+              "colors", {"width": 29, "height": 13, "rays_per_pixel": 33},
+              {}, rounds=True),
+    FusedCase("in_place", "240000 spheres: the boxes read in place",
+              240_000, "colors", {"width": 32, "height": 16,
+                                  "rays_per_pixel": 2, "bounce_limit": 4},
+              {}, staged=False),
+    FusedCase("in_place_rounds", "240000 spheres at 33 spp: the boxes read "
+              "in place, rounds of sample threads", 240_000, "colors",
+              {"width": 8, "height": 4, "rays_per_pixel": 33,
+               "bounce_limit": 4}, {}, staged=False, rounds=True),
+)
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # FP32 outside the tensor cores, and device memory.
@@ -432,6 +499,57 @@ def exact_bar(ref: np.ndarray, out: np.ndarray, rays_ref, rays) -> dict:
     d = np.abs(np.asarray(ref, np.float64) - np.asarray(out, np.float64))
     stats["diff_px"] = int((d > 0).any(axis=-1).sum())
     assert int(rays_ref) == int(rays), stats
+    return stats
+
+
+def fused_case(dev, case: FusedCase) -> dict:
+    """Render ``case`` with the fused kernel and its plain version on
+    ``dev``: bit for bit equal, equal trace counts, the kernel launched
+    once, its boxes staged and its samples in rounds as ``case`` says.
+    Returns the exact_bar stats with the launch shape (``fused_layout``)
+    and both sides' host-clock seconds."""
+    import torch
+
+    from ttrt_torch import assets
+    from ttrt_torch.config import RenderConfig
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import mesh_fused
+    from ttrt_torch.mesh.scene import many_sphere_scene
+
+    cfg = RenderConfig(**case.config)
+    scene = many_sphere_scene(assets.load_skybox(case.sky, device=dev),
+                              case.spheres, cfg.width, cfg.height,
+                              dtype=torch.float32, device=dev)
+    scene = scene.with_camera_frame(
+        orbit_camera_frame(3.3, dtype=torch.float32, device=dev))
+    band = dict(case.band)
+    rows = (band.pop("row_offset", 0.0), band.pop("n_rows", None))
+    cuda = mesh_fused.render_band_mesh_fused_cuda
+    before = cuda.launches
+    t0 = time.perf_counter()
+    fb_k, rays_k = cuda(scene, cfg, *rows, **band)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fb_p, rays_p = mesh_fused.render_band_mesh_fused_plain(scene, cfg, *rows,
+                                                           **band)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert cuda.launches == before + 1, (case.key, cuda.launches)
+    n_rows = cfg.height if rows[1] is None else rows[1]
+    out = fb_k.to_array().cpu().numpy()
+    assert out.shape == (n_rows, cfg.width, 3) and np.isfinite(out).all()
+    stats = exact_bar(fb_p.to_array().cpu().numpy(), out, rays_p, rays_k)
+    assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, (case.key,
+                                                               stats)
+    n_samples = band.get("n_samples", cfg.rays_per_pixel)
+    shape = mesh_fused.fused_layout(scene, cfg, n_rows, n_samples)
+    assert shape["boxes_staged"] == int(case.staged), (case.key, shape)
+    assert (shape["sample_threads"] < n_samples) == case.rounds, (case.key,
+                                                                  shape)
+    stats["layout"] = {k: shape[k] for k in (
+        "sample_threads", "threads_per_block", "blocks", "smem_bytes",
+        "boxes_staged")}
+    stats["kernel_s"], stats["plain_s"] = t1 - t0, t2 - t1
     return stats
 
 
@@ -696,6 +814,36 @@ def _kernel_ms(fn, name: str, reps: int = 20) -> float:
     return row.self_device_time_total / row.count / 1e3
 
 
+def _ptxas_lines(report: str, name: str = "mesh_fused_kernel") -> list:
+    """The lines of an nvcc -Xptxas -v report that belong to the entry
+    functions whose mangled name holds ``name``."""
+    out, current = [], ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        if name in current and any(
+                k in line for k in ("entry function", "registers", "spill")):
+            out.append(line.strip())
+    return out
+
+
+def on_streams(streams, calls) -> list:
+    """Run ``calls[i]()`` on ``streams[i]``, each after the current
+    stream's work so far, and make the current stream wait for all of
+    them. Returns the calls' results."""
+    import torch
+
+    here = torch.cuda.current_stream()
+    out = []
+    for s, call in zip(streams, calls):
+        s.wait_stream(here)
+        with torch.cuda.stream(s):
+            out.append(call())
+    for s in streams:
+        here.wait_stream(s)
+    return out
+
+
 def demo_bound(rays: int, n_px: int, texel_bytes: int = 0):
     """The demo kernel's bound (``bound_ms``): every trace costs at least a
     shadow trace (the cheaper kind) against the 6 spheres and the plane;
@@ -851,7 +999,7 @@ def main() -> int:
         "bound_by": render_bound[1],
         "library_ms": None,  # no single PyTorch call renders a frame
     }]
-    mesh_kernels, fused_work = mesh_phases(card, dev, full)
+    mesh_kernels, fused_work = mesh_phases(card, dev, full, report)
     kernels += mesh_kernels
     kernels.append(pathtrace_phases(card, dev, full))
     kernels += sky_phases(card, dev, full, fused_work)
@@ -866,10 +1014,11 @@ def main() -> int:
     return 0
 
 
-def mesh_phases(card: str, dev, full) -> tuple:
+def mesh_phases(card: str, dev, full, report: str) -> tuple:
     """Phases A-E; returns the two mesh kernels' entries of the kernels
     line, and the work of phase D's fused frame (its scene time, traces,
-    and the FP32 operations and bytes of its bound)."""
+    and the FP32 operations and bytes of its bound). ``report`` is phase
+    1's compiler report."""
     import torch
 
     from ttrt_torch import app, assets
@@ -925,6 +1074,10 @@ def mesh_phases(card: str, dev, full) -> tuple:
         print(f"phase A: {sky} t={t} {flags or ''} {json.dumps(stats)} "
               f"(kernel "
               f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s, host clock)")
+    # the launch shapes the full frames do not take, at reduced sizes
+    for case in FUSED_CASES:
+        stats = fused_case(dev, case)
+        print(f"phase A: {case.label}: {json.dumps(stats)}")
 
     # -- phase B: cluster_nearest vs the dense tester ------------------------
     scene = scene_at(3.3)
@@ -985,6 +1138,25 @@ def mesh_phases(card: str, dev, full) -> tuple:
           f"trace of the frame, [traces, mean a trace] by kind: "
           f"{json.dumps(per_kind)}; {work['narrow_ops']:.6e} narrow-test "
           f"operations)")
+    shape = mesh_fused.fused_layout(scene, full)
+    print(f"phase D: fused kernel's launch at {N_SPHERES} spheres: "
+          f"{json.dumps(shape)}")
+    for line in _ptxas_lines(report):
+        print(f"phase D: ptxas: {line}")
+    streams = [torch.cuda.Stream() for _ in range(full.rays_per_pixel)]
+    bands = [(lambda k=k: fused_cuda(scene, full, sample_offset=float(k),
+                                     n_samples=1, reduce="sum"))
+             for k in range(full.rays_per_pixel)]
+    on_streams(streams, bands)
+    one_ms = _median_ms(lambda: fused_cuda(scene, full), reps=3, warmup=0)
+    set_ms = _median_ms(lambda: on_streams(streams, bands), reps=3,
+                        warmup=0)
+    one_band_ms = _kernel_ms(bands[0], "mesh_fused_kernel", reps=3)
+    print(f"phase D [{card}]: the same frame as {len(bands)} one-sample sum "
+          f"bands on as many streams {set_ms:.4f} ms against one launch "
+          f"{one_ms:.4f} ms ({set_ms / one_ms:.3f}; CUDA events, medians "
+          f"of 3); one such band alone {one_band_ms:.4f} ms (torch.profiler, "
+          f"mean of 3)")
 
     n_rays = o.x.numel()
     near_ms = _median_ms(lambda: mesh.cluster_nearest_cuda(pack, o, d))
@@ -1004,9 +1176,13 @@ def mesh_phases(card: str, dev, full) -> tuple:
     big = scene_at(3.3, n=100_000)
     _, big_rays = fused_cuda(big, full)
     big_ms = _median_ms(lambda: fused_cuda(big, full), reps=5, warmup=1)
+    big_kernel_ms = _kernel_ms(lambda: fused_cuda(big, full),
+                               "mesh_fused_kernel", reps=3)
     print(f"phase D [{card}]: fused kernel at 100000 spheres: "
           f"{int(big_rays)} traces, wrapper {big_ms:.4f} ms/frame = "
-          f"{int(big_rays) / big_ms / 1e3:.1f} Mray/s (median of 5)")
+          f"{int(big_rays) / big_ms / 1e3:.1f} Mray/s (median of 5), kernel "
+          f"alone {big_kernel_ms:.4f} ms (torch.profiler, mean of 3); "
+          f"launch {json.dumps(mesh_fused.fused_layout(big, full))}")
     del big
     torch.cuda.synchronize()
 

@@ -116,6 +116,9 @@ def load() -> ctypes.CDLL:
     lib.ttrt_mesh_fused.restype = ctypes.c_int
     lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 13
                                     + [p, f, p, p, p])
+    # kb_sph, kb_tri, n_dl, n_pl, W, n_rows, n_samples, out[11]
+    lib.ttrt_mesh_fused_layout.restype = ctypes.c_int
+    lib.ttrt_mesh_fused_layout.argtypes = [i] * 7 + [p]
     # ox oy oz dx dy dz, n, sph, sph_id, tri, tri_id, qbox, kb_sph, kb_tri,
     # mode, out_t, out_id, stream
     lib.ttrt_cluster_nearest.restype = ctypes.c_int

@@ -390,12 +390,37 @@ __device__ Sample trace_sample(const Tracer& tr, const Lights& L,
   return s;
 }
 
+// One sample's color: the sky folded in at its final direction when the
+// sky weight is positive, then the contribution-total normalization. A
+// sample whose sky weight is 0 skips the sky: pr + 0 * sky == pr exactly,
+// so it loads no texel. render_pixel adds these in sample order; so does
+// mesh.cu's kernel, which spreads a pixel's samples over threads.
+__device__ __forceinline__ void sample_color(const Sample& s, const Sky& sky,
+                                             bool subtract, float& pr,
+                                             float& pg, float& pb) {
+  pr = s.pr;
+  pg = s.pg;
+  pb = s.pb;
+  if (s.sky_w > 0.0f) {
+    float skr, skg, skb;
+    sky_color(s.dx, s.dy, s.dz, sky, skr, skg, skb);
+    pr = pr + s.sky_w * skr;
+    pg = pg + s.sky_w * skg;
+    pb = pb + s.sky_w * skb;
+  }
+  if (!subtract) {
+    // the subtract model's weights partition unity: no divide
+    const float inv_total = 1.0f / (s.total > 0.0f ? s.total : 1.0f);
+    pr = pr * inv_total;
+    pg = pg * inv_total;
+    pb = pb * inv_total;
+  }
+}
+
 // The frame loop of one pixel: n_samples AA samples out of N
-// (trace_sample), each with the sky folded in at its final direction and
-// the contribution-total normalization. Returns the in-order sum of the
-// samples' colors and the pixel's bounces and hits (its traces are
-// bounces + hits * n_lights). A sample whose sky weight is 0 skips the sky:
-// pr + 0 * sky == pr exactly, so it loads no texel.
+// (trace_sample), each colored by sample_color. Returns the in-order sum of
+// the samples' colors and the pixel's bounces and hits (its traces are
+// bounces + hits * n_lights).
 template <class Tracer>
 __device__ void render_pixel(const Tracer& tr, const Lights& L,
                              const float* cam, int col_i, int row_i, int W,
@@ -411,21 +436,8 @@ __device__ void render_pixel(const Tracer& tr, const Lights& L,
                                   bounce_limit, specular, subtract);
     bounces += s.bounces;
     hits += s.hits;
-    float pr = s.pr, pg = s.pg, pb = s.pb;
-    if (s.sky_w > 0.0f) {
-      float skr, skg, skb;
-      sky_color(s.dx, s.dy, s.dz, sky, skr, skg, skb);
-      pr = pr + s.sky_w * skr;
-      pg = pg + s.sky_w * skg;
-      pb = pb + s.sky_w * skb;
-    }
-    if (!subtract) {
-      // the subtract model's weights partition unity: no divide
-      const float inv_total = 1.0f / (s.total > 0.0f ? s.total : 1.0f);
-      pr = pr * inv_total;
-      pg = pg * inv_total;
-      pb = pb * inv_total;
-    }
+    float pr, pg, pb;
+    sample_color(s, sky, subtract, pr, pg, pb);
     acc_r = acc_r + pr;
     acc_g = acc_g + pg;
     acc_b = acc_b + pb;

@@ -15,19 +15,39 @@
 // wrapper is ttrt_torch/kernels/mesh.py::cluster_nearest_cuda, its plain
 // version the dense tester ttrt_torch/mesh/dense.py::dense_nearest.
 //
-// Design. One thread per pixel (mesh_fused, 16x8 pixel blocks so that a
-// warp's rays are coherent) or per ray (cluster_nearest), with common.cuh's
-// sample and bounce loops: none of the TPU kernel's (ray tile, phase) grid,
-// VMEM state, sublane-class partials or two-level sweep, which worked
-// around the TPU's scalar-sync cost. Each trace walks the K subclusters in
+// Design of mesh_fused_kernel: one thread per (pixel, sample). A pixel's S
+// samples run on S neighbouring threads of one block (a whole band's
+// samples up to 32, else rounds of at most 32), so a warp holds about
+// three pixels' jittered, nearly parallel rays; a block holds
+// P = block / S pixels, consecutive in the band's row-major order. Each
+// thread runs common.cuh's trace_sample<true> and the per-sample sky and
+// normalization of render_pixel (sample_color) for its sample; the
+// pixel's first thread adds the S colors from shared memory in sample
+// order, from 0.0f, and scales the sum, so the bits are render_pixel's.
+// The full 480x280x10 frame is 11,200 blocks of 120 threads, about ten
+// waves at 8 blocks an SM, which the hardware block scheduler balances.
+// Each block first gathers the quarter-box table into the frame's visit
+// order in shared memory with cp.async, 16 bytes a copy (at 10k spheres
+// 88 subclusters, 11,616 bytes), so the walk reads a visited quarter's
+// two boxes with two shared loads and no order[i] lookup before them.
+// Past what a block can hold beside its samples, camera and lights
+// (about 1,760 subclusters, 225,000 spheres), the other instantiation
+// reads the table in place (SMEM_BOXES = false), as cluster_nearest_kernel
+// does. cluster_nearest_kernel keeps one thread per ray. Neither keeps the
+// TPU kernel's (ray tile, phase) grid, VMEM state, sublane-class partials
+// or two-level sweep, which worked around the TPU's scalar-sync cost.
+//
+// The walk, the same in every layout: each trace walks the K subclusters in
 // the per-frame near-to-far order the wrapper computes (mesh_fused) or in
 // index order (cluster_nearest), slab-tests each subcluster's four quarter
 // AABBs with the clamped 1/d (mesh_fused.py:283-288, :602-622), skips a
 // quarter whose entry time is past the best t so far, and narrow-tests the
 // quarter's real objects (32 Morton-consecutive ones, fewer at the end of
 // the pack). Shadow rays take the same walk and stop at the first blocker.
-// Geometry stays in device memory behind L1/L2: at 10k spheres the pack is
-// about 400 KB, more than a block's 227 KB of shared memory.
+// Only the addresses the boxes come from differ (TableBoxes, StagedBoxes).
+// Sphere and triangle rows stay in device memory behind L1/L2: at 10k
+// spheres the pack is about 400 KB, more than a block's 227 KB of shared
+// memory.
 //
 // Arithmetic is the plain versions', op for op (build with --fmad=false):
 // the expanded sphere quadratic with the pack's ccr2 = |C|^2 - r^2
@@ -51,14 +71,23 @@
 //
 // What bounds it on this card: operations, not bytes. A 480x280x10x10 frame
 // at 10k spheres reads the 0.7 MB pack and writes 2.2 MB, microseconds at
-// 3.35 TB/s, but performs millions of traces, each with hundreds of slab
-// tests and about a thousand narrow tests (chip_smoke.py counts them and
-// PERF.md gives the bound). The walk is divergent: the rays of a warp live
-// for different numbers of bounces and enter different quarters. Staging
-// the visited subclusters in shared memory and a tighter per-warp order are
-// later work.
+// 3.35 TB/s, but performs 13.8 million traces, each with 329 slab tests
+// and hundreds of narrow tests (chip_smoke.py counts them; PERF.md gives
+// the 2.6 ms bound). What held the first, one-thread-a-pixel form at
+// 63x that bound (PERF.md, runs R-U): a grid of 1,050 blocks, all
+// resident at once, that lasted as long as its slowest 10-sample chain
+// (ten one-sample launches run together took 0.74 of one launch), and 200
+// bytes of register spills. The design answers with many short blocks,
+// launch bounds of 64 registers that the staged one-round instantiation
+// meets without a spill, and the staged boxes. What remains is the walk's
+// divergence: the rays of a warp live for different numbers of bounces,
+// its lanes wait for each other's traces, shadow rays and narrow tests,
+// and every trace slab-tests every quarter. A better walk is later work,
+// and needs the bound recounted.
 
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -67,8 +96,6 @@ namespace {
 constexpr int QUARTERS = 4;       // culling boxes per subcluster
 constexpr int QBLOCK = 32;        // objects per quarter
 constexpr int SUB = QUARTERS * QBLOCK;  // objects per subcluster
-constexpr int TILE_X = 16;        // mesh_fused pixel block
-constexpr int TILE_Y = 8;
 constexpr int NEAREST_BLOCK = 128;
 
 // The pack as the kernels read it (ttrt_torch/mesh/clusters.py::KernelTables),
@@ -98,17 +125,19 @@ __device__ __forceinline__ float cinv(float dc) {
   return 1.0f / (dc >= 0.0f ? m : -m);
 }
 
-// Slab test of quarter `row` (mesh_fused.py:602-622): passes when the ray
-// line meets the box at t >= 0; returns the count of real objects in the
-// quarter (0 when it does not pass) and the entry time tn.
-__device__ __forceinline__ int quarter(const MeshGeom& g, int row, float ox,
-                                       float oy, float oz, float ivx,
-                                       float ivy, float ivz, float& tn) {
-  const float4 a = g.qbox[2 * row];
-  const float4 b = g.qbox[2 * row + 1];
+// Slab test of row `row` of the box table `qbox` (mesh_fused.py:602-622):
+// passes when the ray line meets the box at t >= 0; returns the count of
+// real objects in the quarter (0 when it does not pass) and the entry
+// time tn.
+__device__ __forceinline__ int quarter(const float4* qbox, bool cull, int row,
+                                       float ox, float oy, float oz,
+                                       float ivx, float ivy, float ivz,
+                                       float& tn) {
+  const float4 a = qbox[2 * row];
+  const float4 b = qbox[2 * row + 1];
   const int n = (int)b.z;
   tn = 0.0f;
-  if (n == 0 || !g.cull) return n;
+  if (n == 0 || !cull) return n;
   float t1 = (a.x - ox) * ivx, t2 = (a.w - ox) * ivx;
   float n_ = fminf(t1, t2), f_ = fmaxf(t1, t2);
   t1 = (a.y - oy) * ivy;
@@ -122,6 +151,34 @@ __device__ __forceinline__ int quarter(const MeshGeom& g, int row, float ox,
   tn = n_;
   return f_ >= fmaxf(n_, 0.0f) ? n : 0;
 }
+
+// Where the walk reads the quarter boxes. Both visit the subclusters in
+// the same order and run the same slab test on the same boxes; only the
+// addresses differ.
+// In place: the kernel tables' qbox, subcluster `sub`'s quarters at rows
+// 4*sub .. 4*sub+3, visited in `order` (null: index order).
+struct TableBoxes {
+  const float4* box;
+  const int* order;
+  __device__ __forceinline__ int sub(int i) const {
+    return order != nullptr ? order[i] : i;
+  }
+  __device__ __forceinline__ int row(int i, int sub, int q) const {
+    return sub * QUARTERS + q;
+  }
+};
+
+// Staged: the table gathered into visit order (the i-th visited
+// subcluster's quarters at rows 4*i .. 4*i+3) and the order itself, in
+// shared memory.
+struct StagedBoxes {
+  const float4* box;
+  const int* order;
+  __device__ __forceinline__ int sub(int i) const { return order[i]; }
+  __device__ __forceinline__ int row(int i, int sub, int q) const {
+    return i * QUARTERS + q;
+  }
+};
 
 // Per-ray terms of the expanded sphere quadratic (ttrt_torch/mesh/dense.py).
 struct Ray {
@@ -201,8 +258,9 @@ struct Nearest {
 
 // Nearest (t, original id) over the pack: the culled walk, with the
 // lowest id winning an exact tie in t.
-__device__ Nearest nearest(const MeshGeom& g, float ox, float oy, float oz,
-                           float dx, float dy, float dz) {
+template <class Boxes>
+__device__ Nearest nearest(const MeshGeom& g, const Boxes& bx, float ox,
+                           float oy, float oz, float dx, float dy, float dz) {
   const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
   const float ivx = cinv(dx), ivy = cinv(dy), ivz = cinv(dz);
   Nearest best;
@@ -212,12 +270,12 @@ __device__ Nearest nearest(const MeshGeom& g, float ox, float oy, float oz,
   best.tri = false;
   const int K = g.kb_sph + g.kb_tri;
   for (int i = 0; i < K; ++i) {
-    const int sub = g.order != nullptr ? g.order[i] : i;
+    const int sub = bx.sub(i);
     const bool is_tri = sub >= g.kb_sph;
     for (int q = 0; q < QUARTERS; ++q) {
       float tn;
-      const int n = quarter(g, sub * QUARTERS + q, ox, oy, oz, ivx, ivy, ivz,
-                            tn);
+      const int n = quarter(bx.box, g.cull, bx.row(i, sub, q), ox, oy, oz,
+                            ivx, ivy, ivz, tn);
       if (n == 0 || tn > best.t) continue;
       const int base = (is_tri ? sub - g.kb_sph : sub) * SUB + q * QBLOCK;
       for (int j = 0; j < n; ++j) {
@@ -243,13 +301,15 @@ __device__ Nearest nearest(const MeshGeom& g, float ox, float oy, float oz,
   return best;
 }
 
-// The many-object tracer for common.cuh's render_pixel.
+// The many-object tracer for common.cuh's trace_sample.
+template <class Boxes>
 struct MeshTracer {
   MeshGeom g;
+  Boxes bx;
 
   __device__ Hit trace(float ox, float oy, float oz, float dx, float dy,
                        float dz) const {
-    const Nearest b = nearest(g, ox, oy, oz, dx, dy, dz);
+    const Nearest b = nearest(g, bx, ox, oy, oz, dx, dy, dz);
     if (b.id < 0) return miss_hit(ox, oy, oz, dx, dy, dz);
     Hit h;
     if (b.tri) {
@@ -278,12 +338,12 @@ struct MeshTracer {
     const float ivx = cinv(ldx), ivy = cinv(ldy), ivz = cinv(ldz);
     const int K = g.kb_sph + g.kb_tri;
     for (int i = 0; i < K; ++i) {
-      const int sub = g.order != nullptr ? g.order[i] : i;
+      const int sub = bx.sub(i);
       const bool is_tri = sub >= g.kb_sph;
       for (int q = 0; q < QUARTERS; ++q) {
         float tn;
-        const int n = quarter(g, sub * QUARTERS + q, px, py, pz, ivx, ivy,
-                              ivz, tn);
+        const int n = quarter(bx.box, g.cull, bx.row(i, sub, q), px, py, pz,
+                              ivx, ivy, ivz, tn);
         if (n == 0 || (has_tmax && tn > tmax)) continue;
         const int base = (is_tri ? sub - g.kb_sph : sub) * SUB + q * QBLOCK;
         for (int j = 0; j < n; ++j) {
@@ -315,59 +375,164 @@ struct MeshTracer {
   }
 };
 
-// The camera and the lights go into dynamic shared memory up to this size
-// (no opt-in attribute needed): thousands of lights. More are read in place
-// from their global arrays.
+// The camera and the lights go into dynamic shared memory up to this size:
+// thousands of lights. More are read in place from their global arrays.
 constexpr size_t SMEM_LIGHT_BYTES = 48 * 1024;
 
-__global__ void __launch_bounds__(TILE_X * TILE_Y)
+// The launch shape of mesh_fused_kernel. A pixel's samples run on
+// S <= MAX_ROUND threads of one block, in rounds of S when it has more; a
+// block holds P = block / S pixels, consecutive in the band's row-major
+// order. The block size is the smallest of FUSED_BLOCK, 2 * FUSED_BLOCK,
+// ... FUSED_MAX_THREADS that keeps the most warps resident on an SM: small
+// blocks end sooner (a block lasts as long as its slowest sample), and a
+// table of boxes too large for several small blocks an SM calls for larger
+// ones. The launch bounds hold a thread to
+// 65536 / (FUSED_MAX_THREADS * FUSED_MIN_BLOCKS) = 64 registers. PERF.md
+// records the layouts compared before these were kept.
+constexpr int FUSED_BLOCK = 128;
+constexpr int FUSED_MAX_THREADS = 512;
+constexpr int FUSED_MIN_BLOCKS = 2;
+constexpr int MAX_ROUND = 32;
+
+// Bytes of the staged boxes of K subclusters: 8 float4 each, then the
+// visit order, padded to whole float4s.
+inline size_t staged_box_bytes(int K) {
+  return (size_t)K * 2 * QUARTERS * sizeof(float4) +
+         (size_t)((K + 3) & ~3) * sizeof(int);
+}
+
+// One 16-byte asynchronous copy from global to shared memory (cp.async,
+// through L2), and the wait for every copy this thread issued.
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Dynamic shared memory of a block, in this order: with SMEM_BOXES the
+// quarter boxes gathered into the frame's visit order and the order
+// itself (staged_box_bytes); the colors of a round's samples (3 floats a
+// thread), the threads' trace counts (an int a thread) and the pixels'
+// sums between rounds (3 floats a pixel); with smem_lights the camera and
+// the lights. ROUNDS = false is the one-round launch (S == n_samples):
+// without the round loop nothing computed before the sample is kept
+// across it, so no register spills.
+template <bool SMEM_BOXES, bool ROUNDS>
+__global__ void __launch_bounds__(FUSED_MAX_THREADS, FUSED_MIN_BLOCKS)
 mesh_fused_kernel(const float* __restrict__ cam_in,
                   const float* __restrict__ dl_in, int n_dl,
                   const float* __restrict__ pl_in, int n_pl, MeshGeom g,
-                  int W, int H, int N, int n_rows, int n_samples,
+                  int W, int H, int N, int n_rows, int n_samples, int S,
                   int bounce_limit, int specular, int subtract, Sky sky,
-                  float scale, int smem,
+                  float scale, int smem_lights,
                   float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
-  extern __shared__ float sbuf[];
-  const int n_dlf = DLIGHT_FLOATS * n_dl, n_plf = PLIGHT_FLOATS * n_pl;
+  using Boxes =
+      typename std::conditional<SMEM_BOXES, StagedBoxes, TableBoxes>::type;
+  extern __shared__ float4 smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int K = g.kb_sph + g.kb_tri;
+  Boxes bx{g.qbox, g.order};
+  float* tail = reinterpret_cast<float*>(smem);
+  if (SMEM_BOXES) {
+    constexpr int ROW4 = 2 * QUARTERS;  // float4s of a subcluster's boxes
+    int* order = reinterpret_cast<int*>(smem + ROW4 * K);
+    for (int j = tid; j < ROW4 * K; j += nt)
+      cp_async16(smem + j, g.qbox + ROW4 * g.order[j / ROW4] + j % ROW4);
+    for (int i = tid; i < K; i += nt) order[i] = g.order[i];
+    bx.box = smem;
+    bx.order = order;
+    tail = reinterpret_cast<float*>(order + ((K + 3) & ~3));
+  }
+  const int P = nt / S;
+  float* col_r = tail;
+  float* col_g = col_r + nt;
+  float* col_b = col_g + nt;
+  int* count = reinterpret_cast<int*>(col_b + nt);
+  float* acc = reinterpret_cast<float*>(count + nt);
   const float* cam = cam_in;
   Lights L;
   L.dl = dl_in;
   L.pl = pl_in;
   L.n_dl = n_dl;
   L.n_pl = n_pl;
-  if (smem) {
-    const int tid = threadIdx.y * TILE_X + threadIdx.x;
-    for (int i = tid; i < CAM_FLOATS + n_dlf + n_plf; i += TILE_X * TILE_Y) {
-      sbuf[i] = i < CAM_FLOATS ? cam_in[i]
-                : i < CAM_FLOATS + n_dlf ? dl_in[i - CAM_FLOATS]
-                                         : pl_in[i - CAM_FLOATS - n_dlf];
+  if (smem_lights) {
+    float* sl = acc + 3 * P;
+    const int n_dlf = DLIGHT_FLOATS * n_dl, n_plf = PLIGHT_FLOATS * n_pl;
+    for (int i = tid; i < CAM_FLOATS + n_dlf + n_plf; i += nt) {
+      sl[i] = i < CAM_FLOATS ? cam_in[i]
+              : i < CAM_FLOATS + n_dlf ? dl_in[i - CAM_FLOATS]
+                                       : pl_in[i - CAM_FLOATS - n_dlf];
     }
-    __syncthreads();
-    cam = sbuf;
-    L.dl = sbuf + CAM_FLOATS;
+    cam = sl;
+    L.dl = sl + CAM_FLOATS;
     L.pl = L.dl + n_dlf;
   }
+  if (SMEM_BOXES) cp_async_wait_all();
+  __syncthreads();
 
-  const int col = blockIdx.x * TILE_X + threadIdx.x;
-  const int row = blockIdx.y * TILE_Y + threadIdx.y;
-  if (col >= W || row >= n_rows) return;
+  const int p = tid / S, s = tid - p * S;
+  const int pix = blockIdx.x * P + p;
+  const bool live = pix < W * n_rows;
+  const int row = pix / W, col = pix - row * W;
+  const MeshTracer<Boxes> tr{g, bx};
+  const int n_lights = n_dl + n_pl;
 
-  MeshTracer tr;
-  tr.g = g;
-
-  float acc_r, acc_g, acc_b;
-  int bounces, hits;
-  render_pixel(tr, L, cam, col, row, W, H, N, n_samples, bounce_limit,
-               specular != 0, subtract != 0, sky, acc_r, acc_g, acc_b,
-               bounces, hits);
-  const int n_pixels = W * n_rows;
-  const int pix = row * W + col;
-  out_rgb[pix] = acc_r * scale;
-  out_rgb[n_pixels + pix] = acc_g * scale;
-  out_rgb[2 * n_pixels + pix] = acc_b * scale;
-  out_count[pix] = bounces + hits * (n_dl + n_pl);
+  // render_pixel's sample loop, its samples spread over the pixel's S
+  // threads: each round's colors are added by the pixel's first thread
+  // in sample order, from 0.0f, so the sum rounds as render_pixel's. The
+  // sums between rounds (acc) and the trace counts wait in shared memory,
+  // not in registers across the trace.
+  count[tid] = 0;
+  const int n_rounds = ROUNDS ? (n_samples + S - 1) / S : 1;
+  for (int round = 0; round < n_rounds; ++round) {
+    const int k0 = round * S;
+    if (k0 > 0) __syncthreads();  // the last round's colors are added
+    const int k = k0 + s;
+    if (live && k < n_samples) {
+      const Sample smp =
+          trace_sample<true>(tr, L, cam, col, row, k, W, H, N, bounce_limit,
+                             specular != 0, subtract != 0);
+      float pr, pg, pb;
+      sample_color(smp, sky, subtract != 0, pr, pg, pb);
+      col_r[tid] = pr;
+      col_g[tid] = pg;
+      col_b[tid] = pb;
+      count[tid] += smp.bounces + smp.hits * n_lights;
+    }
+    __syncthreads();
+    if (!live || s != 0) continue;
+    float r = 0.0f, gg = 0.0f, b = 0.0f;
+    if (k0 > 0) {
+      r = acc[p];
+      gg = acc[P + p];
+      b = acc[2 * P + p];
+    }
+    const int m = min(S, n_samples - k0);
+    for (int j = 0; j < m; ++j) {
+      r = r + col_r[tid + j];
+      gg = gg + col_g[tid + j];
+      b = b + col_b[tid + j];
+    }
+    if (k0 + S < n_samples) {
+      acc[p] = r;
+      acc[P + p] = gg;
+      acc[2 * P + p] = b;
+      continue;
+    }
+    int total = 0;
+    for (int j = 0; j < S; ++j) total += count[tid + j];
+    const int n_pixels = W * n_rows;
+    out_rgb[pix] = r * scale;
+    out_rgb[n_pixels + pix] = gg * scale;
+    out_rgb[2 * n_pixels + pix] = b * scale;
+    out_count[pix] = total;
+  }
 }
 
 __global__ void __launch_bounds__(NEAREST_BLOCK)
@@ -380,7 +545,8 @@ cluster_nearest_kernel(const float* __restrict__ ox,
                        float* __restrict__ out_t, int* __restrict__ out_id) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Nearest b = nearest(g, ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+  const Nearest b = nearest(g, TableBoxes{g.qbox, nullptr}, ox[i], oy[i],
+                            oz[i], dx[i], dy[i], dz[i]);
   out_t[i] = b.t;
   out_id[i] = b.id;
 }
@@ -409,6 +575,83 @@ MeshGeom make_geom(const float* sph, const float* sph_mat,
   return g;
 }
 
+
+// The launch shape of one band (see FUSED_BLOCK above).
+struct FusedShape {
+  int samples;   // S, sample threads of a pixel
+  int pixels;    // P, pixels of a block
+  int threads;   // P * S
+  int blocks;
+  size_t smem;   // dynamic shared memory of a block
+  bool smem_boxes, smem_lights;
+  bool rounds;   // more than one round of S samples
+  int resident;  // blocks an SM holds (the occupancy calculator's)
+};
+
+using FusedKernel = decltype(&mesh_fused_kernel<true, true>);
+
+FusedKernel fused_kernel(bool smem_boxes, bool rounds) {
+  return smem_boxes ? (rounds ? mesh_fused_kernel<true, true>
+                              : mesh_fused_kernel<true, false>)
+                    : (rounds ? mesh_fused_kernel<false, true>
+                              : mesh_fused_kernel<false, false>);
+}
+
+// The boxes are staged when they fit in a block beside the rest of its
+// shared memory; else the kernel reads them in place (SMEM_BOXES = false).
+cudaError_t fused_shape(int K, int n_dl, int n_pl, int W, int n_rows,
+                        int n_samples, FusedShape& sh) {
+  const int rounds = (n_samples + MAX_ROUND - 1) / MAX_ROUND;
+  sh.samples = (n_samples + rounds - 1) / rounds;
+  sh.rounds = rounds > 1;
+  const size_t light_bytes =
+      sizeof(float) * ((size_t)CAM_FLOATS + (size_t)DLIGHT_FLOATS * n_dl +
+                       (size_t)PLIGHT_FLOATS * n_pl);
+  sh.smem_lights = light_bytes <= SMEM_LIGHT_BYTES;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t box_bytes = staged_box_bytes(K);
+  sh.smem_boxes = true;
+  sh.pixels = sh.threads = sh.resident = 0;
+  sh.smem = 0;
+  int best_warps = 0;
+  while (true) {
+    const FusedKernel kernel = fused_kernel(sh.smem_boxes, sh.rounds);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    for (int b = FUSED_BLOCK; b <= FUSED_MAX_THREADS; b *= 2) {
+      const int P = b / sh.samples, threads = P * sh.samples;
+      const size_t smem = (sh.smem_boxes ? box_bytes : 0) +
+                          (3 * sizeof(float) + sizeof(int)) * threads +
+                          3 * sizeof(float) * P +
+                          (sh.smem_lights ? light_bytes : 0);
+      if (smem > (size_t)optin) continue;
+      int resident = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                          threads, smem);
+      if (err != cudaSuccess) return err;
+      const int warps = resident * ((threads + 31) / 32);
+      if (warps > best_warps) {
+        best_warps = warps;
+        sh.pixels = P;
+        sh.threads = threads;
+        sh.smem = smem;
+        sh.resident = resident;
+      }
+    }
+    if (sh.resident > 0) break;
+    if (!sh.smem_boxes) return cudaErrorInvalidConfiguration;
+    sh.smem_boxes = false;
+  }
+  sh.blocks = (int)(((long long)W * n_rows + sh.pixels - 1) / sh.pixels);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -434,22 +677,54 @@ int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
   if (n_dl < 0 || n_pl < 0 ||
       W < 1 || H < 1 || N < 1 || n_rows < 1 || n_samples < 1 ||
       kb_sph < 0 || kb_tri < 0 || sky_dim < 1 || sky_kind < SKY_COLORS ||
-      sky_kind > SKY_IMAGE || (sky_kind == SKY_IMAGE && texels == nullptr))
+      sky_kind > SKY_IMAGE || (sky_kind == SKY_IMAGE && texels == nullptr) ||
+      order == nullptr)
     return (int)cudaErrorInvalidValue;
   const Sky sky{sky_kind, sky_dim, bilinear != 0, texels};
   const MeshGeom g =
       make_geom(sph, sph_mat, sph_spec, sph_id, tri, tri_nrm, tri_mat,
                 tri_spec, tri_id, qbox, order, kb_sph, kb_tri, true);
-  const size_t bytes =
-      sizeof(float) * ((size_t)CAM_FLOATS + (size_t)DLIGHT_FLOATS * n_dl +
-                       (size_t)PLIGHT_FLOATS * n_pl);
-  const bool smem = bytes <= SMEM_LIGHT_BYTES;
-  const dim3 block(TILE_X, TILE_Y);
-  const dim3 grid((W + TILE_X - 1) / TILE_X, (n_rows + TILE_Y - 1) / TILE_Y);
-  mesh_fused_kernel<<<grid, block, smem ? bytes : 0, (cudaStream_t)stream>>>(
-      cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, bounce_limit,
-      specular, subtract, sky, scale, smem ? 1 : 0, out_rgb, out_count);
+  FusedShape sh;
+  const cudaError_t err =
+      fused_shape(kb_sph + kb_tri, n_dl, n_pl, W, n_rows, n_samples, sh);
+  if (err != cudaSuccess) return (int)err;
+  const FusedKernel kernel = fused_kernel(sh.smem_boxes, sh.rounds);
+  kernel<<<sh.blocks, sh.threads, sh.smem, (cudaStream_t)stream>>>(
+      cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, sh.samples,
+      bounce_limit, specular, subtract, sky, scale, sh.smem_lights ? 1 : 0,
+      out_rgb, out_count);
   return (int)cudaGetLastError();
+}
+
+// The launch shape ttrt_mesh_fused takes for a band of these sizes, into
+// out[11]: sample threads of a pixel, pixels of a block, threads of a
+// block, blocks, dynamic shared bytes of a block, boxes staged (1) or read
+// in place (0), camera and lights staged (1 or 0), blocks an SM holds,
+// SMs, and the chosen instantiation's registers and local (spill) bytes
+// of a thread. Returns a CUDA error code (0 on success).
+int ttrt_mesh_fused_layout(int kb_sph, int kb_tri, int n_dl, int n_pl, int W,
+                           int n_rows, int n_samples, int* out) {
+  if (n_dl < 0 || n_pl < 0 || W < 1 || n_rows < 1 || n_samples < 1 ||
+      kb_sph < 0 || kb_tri < 0)
+    return (int)cudaErrorInvalidValue;
+  FusedShape sh;
+  cudaError_t err =
+      fused_shape(kb_sph + kb_tri, n_dl, n_pl, W, n_rows, n_samples, sh);
+  int dev = 0, sms = 0;
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr,
+                                fused_kernel(sh.smem_boxes, sh.rounds));
+  if (err != cudaSuccess) return (int)err;
+  const int vals[11] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
+                        (int)sh.smem, sh.smem_boxes ? 1 : 0,
+                        sh.smem_lights ? 1 : 0, sh.resident, sms,
+                        attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
+  return 0;
 }
 
 // Nearest (t, original id) of n rays on `stream`; t = inf and id = -1 on a

@@ -190,11 +190,15 @@ def render_band_mesh_fused_cuda(
     n_samples: Optional[int] = None, reduce: str = "avg",
 ) -> Tuple[Vec3, torch.Tensor]:
     """Render a band with the CUDA kernel (csrc/mesh.cu,
-    ``ttrt_mesh_fused``): one thread per pixel, its samples and bounces
-    as loops; writes the (3, n_rows, W) sample average (or sum) and the
-    per-pixel trace counts. The wrapper computes the per-frame visit order
-    (an argsort over the K subclusters) and packs the camera and lights.
-    Raises on anything the kernel does not take, CPU tensors included."""
+    ``ttrt_mesh_fused``): one thread per (pixel, sample), a pixel's
+    samples in one block and added there in sample order, the bounces as
+    a loop, the quarter boxes staged in shared memory in the frame's visit
+    order (read in place past what a block holds); writes the
+    (3, n_rows, W) sample average (or sum) and the per-pixel trace counts
+    (``fused_layout`` gives the launch shape). The wrapper computes the
+    per-frame visit order (an argsort over the K subclusters) and packs
+    the camera and lights. Raises on anything the kernel does not take,
+    CPU tensors included."""
     from ttrt_torch.kernels import build
 
     check_supported(scene, cfg)
@@ -238,6 +242,39 @@ def render_band_mesh_fused_cuda(
 
 
 render_band_mesh_fused_cuda.launches = 0
+
+
+LAYOUT_KEYS = ("sample_threads", "pixels_per_block",
+               "threads_per_block", "blocks", "smem_bytes", "boxes_staged",
+               "lights_staged", "blocks_per_sm", "sms", "registers",
+               "local_bytes")
+
+
+def fused_layout(scene, cfg: RenderConfig, n_rows: Optional[int] = None,
+                 n_samples: Optional[int] = None) -> dict:
+    """The launch shape ``render_band_mesh_fused_cuda`` takes for a band of
+    ``scene`` (``ttrt_mesh_fused_layout``): the sample threads of a pixel,
+    pixels, threads and dynamic shared bytes of a block, the blocks,
+    whether the boxes and the lights are staged in shared memory, the
+    blocks an SM holds and the SMs (hence ``waves``), and the kernel's
+    registers and local (spill) bytes a thread. Needs a CUDA device."""
+    import ctypes
+
+    from ttrt_torch.kernels import build
+
+    tab = scene.clusters.tables
+    out = (ctypes.c_int * len(LAYOUT_KEYS))()
+    rc = build.load().ttrt_mesh_fused_layout(
+        tab.kb_sph, tab.kb_tri, scene.directional_lights.count,
+        scene.point_lights.count, cfg.width,
+        cfg.height if n_rows is None else n_rows,
+        cfg.rays_per_pixel if n_samples is None else n_samples, out)
+    if rc != 0:
+        raise RuntimeError(f"fused mesh kernel layout failed: CUDA error {rc}")
+    shape = dict(zip(LAYOUT_KEYS, out))
+    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
+                                        * shape["sms"])
+    return shape
 
 
 def render_band_mesh_fused(scene, cfg: RenderConfig, row_offset: float = 0.0,
