@@ -19,14 +19,21 @@ The demo scene, through the render kernel (csrc/render.cu):
      --energy-model subtract and --bilinear ('uv_checker'). Bar: u8 flips
      on <= 1% of pixels, median
      |d| < 2e-5, max |d| < 0.5/255 off the flipped pixels, trace counts
-     within max(0.5%, 16).
+     within max(0.5%, 16). Then RENDER_CASES at reduced sizes, bit for
+     bit: an odd frame, a band of rows x a sample slice, 33 samples (two
+     rounds of sample threads), a 1400-sphere scene read in place, and
+     the pixel-rate frame in rounds and in place: every instantiation the
+     launch can choose.
   3. kernel vs the JAX oracle stored in tests/data/torch_port_golden.npz:
      zero u8 flips outside the stored knife-edge classes K1 | K2 and the
      quantization class KQ (tests/knife_util.py's bar).
   4. timing with CUDA events (median of 20 after warm-up): the kernel's
      wrapper (scene packing included) and the plain version at the full
      config, the device ANSI encode, the copy to the host and the write;
-     the kernel's own device time from torch.profiler.
+     the kernel's own device time from torch.profiler (each such line
+     says how its time was taken: when the profiler gives no row for the
+     kernel, it is the wrapper's by CUDA events and the line says so);
+     its launch shape (blocks, threads, waves, registers) and ptxas lines.
   5. 60 frames of ttrt_torch.app.run_animation into a byte sink, pacing
      off: the ANSI stream is validated, the kernel's launch count must rise
      by 60 and the plain version's must not move.
@@ -46,15 +53,22 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
      milky_way sky bilinear, and 240,000 spheres at 2 and 33 samples (the
      boxes read in place): every instantiation the launch can choose.
   B. cluster_nearest ("cull" and "dense") vs the dense tester on the
-     frame's primary rays and on one bounce's rays: t bit-equal, ids equal.
+     frame's primary rays and on one bounce's rays; vs cluster_nearest_plain
+     on three batches of the eager frame (eager_batches: the primary rays,
+     bounce 3's rays and the point light's first shadow rays, full length,
+     dead rays included); on a 240,000-sphere pack: t bit-equal, ids equal.
   C. the fused kernel vs the JAX oracle stored in
      tests/data/torch_port_golden_mesh.npz, with phase 3's bar.
   D. timing with CUDA events: the fused kernel alone and with its wrapper
      (visit order and packing), the plain version, the kernel alone and
-     with its wrapper at 100k spheres, and cluster_nearest on the primary
-     rays; each kernel's bound, from the narrow tests its traces need (for
-     the fused kernel, every trace of the frame, counted on one more run of
-     the plain version); the fused kernel's launch shape at 10k and 100k
+     with its wrapper at 100k spheres, and cluster_nearest's wrapper on the
+     primary rays and the kernel alone on phase B's three batches; each
+     kernel's bound, from the narrow tests its traces need (for the fused
+     kernel, every trace of the frame, counted on one more run of the
+     plain version; for cluster_nearest each batch's, beside the narrow
+     tests its index-order walk really makes and the walk's SIMT
+     efficiency, walk_work); cluster_nearest's launch shape and ptxas
+     lines; the fused kernel's launch shape at 10k and 100k
      spheres (blocks, threads, waves, registers) and its ptxas lines; the
      10k frame as ten one-sample sum bands launched together on ten
      streams against the one launch (well under 1 would say the one
@@ -270,6 +284,61 @@ FUSED_CASES = (
                "bounce_limit": 4}, {}, staged=False, rounds=True),
 )
 
+class RenderCase(NamedTuple):
+    """A band of the demo scene (t = 1.5, the 'colors' sky) for the render
+    kernel against its plain version: ``config`` the RenderConfig's
+    fields, ``band`` render_band's row and sample arguments, ``spheres``
+    the spheres of a crowded scene (``crowd``, one light of each kind; 0
+    keeps the demo's six), ``pixel_rate`` the pixel-rate frame (16|16
+    counts), ``staged`` whether the kernel stages the scene in shared
+    memory, ``rounds`` whether a pixel's samples take more than one round
+    of its sample threads: with the full frames of phases 2 and S6, the
+    eight instantiations of render_kernel."""
+
+    key: str
+    label: str
+    spheres: int
+    config: dict
+    band: dict
+    pixel_rate: bool = False
+    staged: bool = True
+    rounds: bool = False
+
+
+# The render kernel's launch shapes that the full frames of phases 2, M1
+# and S6 do not take, at reduced sizes (phase M0 and
+# tests/test_torch_cuda_render.py). 1400 spheres make a 50,772-byte scene,
+# past the 48 KB the kernel stages in shared memory.
+RENDER_CASES = (
+    RenderCase("odd", "97x41, 3 spp: neither side a multiple of a block", 0,
+               {"width": 97, "height": 41, "rays_per_pixel": 3}, {}),
+    RenderCase("band", "rows 7-29 of 61x37, samples 3-7 of 10, summed", 0,
+               {"width": 61, "height": 37},
+               {"row_offset": 7, "n_rows": 23, "sample_offset": 3,
+                "n_samples": 5, "reduce": "sum"}),
+    RenderCase("rounds", "33 spp, specular: rounds of 17 and 16 sample "
+               "threads", 0, {"width": 29, "height": 13,
+                              "rays_per_pixel": 33, "specular": True}, {},
+               rounds=True),
+    RenderCase("in_place", "1400 spheres: the scene read in place", 1400,
+               {"width": 64, "height": 32, "rays_per_pixel": 2,
+                "bounce_limit": 3}, {}, staged=False),
+    RenderCase("in_place_rounds", "1400 spheres at 33 spp, subtract", 1400,
+               {"width": 16, "height": 8, "rays_per_pixel": 33,
+                "bounce_limit": 3, "energy_model": "subtract"}, {},
+               staged=False, rounds=True),
+    RenderCase("rate_rounds", "pixel rate, 33 spp", 0,
+               {"width": 29, "height": 13, "rays_per_pixel": 33}, {},
+               pixel_rate=True, rounds=True),
+    RenderCase("rate_in_place", "pixel rate, 1400 spheres", 1400,
+               {"width": 64, "height": 32, "rays_per_pixel": 2,
+                "bounce_limit": 3}, {}, pixel_rate=True, staged=False),
+    RenderCase("rate_in_place_rounds", "pixel rate, 1400 spheres at 33 spp",
+               1400, {"width": 16, "height": 8, "rays_per_pixel": 33,
+                      "bounce_limit": 3}, {}, pixel_rate=True,
+               staged=False, rounds=True),
+)
+
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # FP32 outside the tensor cores, and device memory.
 PEAK_FP32 = 67e12  # operations/s
@@ -279,7 +348,7 @@ PEAK_BYTES = 3.35e12  # bytes/s
 DEMO_SHADOW_SPHERE_OPS = 19  # render.cu blocked(), one sphere
 DEMO_SHADOW_PLANE_OPS = 14  # render.cu blocked(), the ground plane
 SLAB_OPS = 25  # mesh.cu quarter(): 6 sub, 6 mul, 13 min/max
-SPHERE_OPS = 18  # mesh.cu sphere_t(), no root (a miss)
+SPHERE_OPS = 18  # mesh.cu sphere_hit(), no root (a miss)
 TRI_OPS = 46  # mesh.cu tri_t(): 3 cross products, 4 dots, 1 div, ...
 # pathtrace.cu and the common.cuh device functions it calls (cosf and sinf
 # count 1 each; comparisons, conversions and the Russian roulette are left
@@ -553,6 +622,91 @@ def fused_case(dev, case: FusedCase) -> dict:
     return stats
 
 
+def render_case(dev, case: RenderCase) -> dict:
+    """Render ``case`` with the render kernel and its plain version on
+    ``dev``: bit for bit equal, equal trace counts, the kernel launched
+    once, its scene staged and its samples in rounds as ``case`` says.
+    Returns the exact_bar stats with the launch shape (``render_layout``)."""
+    import torch
+
+    from ttrt_torch import assets
+    from ttrt_torch.config import RenderConfig
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import render
+    from ttrt_torch.scene import demo_scene
+
+    cfg = RenderConfig(**case.config)
+    scene = demo_scene(assets.load_skybox("colors", device=dev), cfg.width,
+                       cfg.height, dtype=torch.float32, device=dev)
+    scene = scene.with_camera_frame(
+        orbit_camera_frame(1.5, dtype=torch.float32, device=dev))
+    if case.spheres:
+        scene = crowd(scene, case.spheres, 1, 1, seed=4)
+    band = dict(case.band)
+    rows = (band.pop("row_offset", 0), band.pop("n_rows", None))
+    if case.pixel_rate:
+        cuda = render.render_frame_pixel_rate_cuda
+        kernel = lambda: cuda(scene, cfg)  # noqa: E731
+        plain = lambda: render.render_frame_pixel_rate_plain(  # noqa: E731
+            scene, cfg)
+    else:
+        cuda = render.render_band_cuda
+        kernel = lambda: cuda(scene, cfg, *rows, **band)  # noqa: E731
+        plain = lambda: render.render_band_plain(  # noqa: E731
+            scene, cfg, *rows, **band)
+    before = cuda.launches
+    fb_k, rays_k = kernel()
+    fb_p, rays_p = plain()
+    torch.cuda.synchronize()
+    assert cuda.launches == before + 1, (case.key, cuda.launches)
+    n_rows = cfg.height if rows[1] is None else rows[1]
+    out = fb_k.to_array().cpu().numpy()
+    assert out.shape == (n_rows, cfg.width, 3) and np.isfinite(out).all()
+    stats = exact_bar(fb_p.to_array().cpu().numpy(), out, rays_p, rays_k)
+    assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, (case.key,
+                                                               stats)
+    n_samples = band.get("n_samples", cfg.rays_per_pixel)
+    shape = render.render_layout(scene, cfg, n_rows, n_samples,
+                                 case.pixel_rate)
+    assert shape["scene_staged"] == int(case.staged), (case.key, shape)
+    assert (shape["sample_threads"] < n_samples) == case.rounds, (case.key,
+                                                                  shape)
+    stats["layout"] = {k: shape[k] for k in (
+        "sample_threads", "threads_per_block", "blocks", "smem_bytes",
+        "scene_staged")}
+    return stats
+
+
+def nearest_case(dev, n_spheres: int) -> dict:
+    """cluster_nearest_cuda on the primary rays of a 64x32x2 frame of an
+    ``n_spheres`` scene (t = 3.3) against the dense tester (nearest_bar);
+    the stats with the launch shape (``nearest_layout``)."""
+    import torch
+
+    from ttrt_torch import assets
+    from ttrt_torch.config import RenderConfig
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import mesh
+    from ttrt_torch.mesh.dense import dense_nearest
+    from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.render.integrator import generate_rays
+    from ttrt_torch.vec import Vec3
+
+    cfg = RenderConfig(width=64, height=32, rays_per_pixel=2)
+    scene = many_sphere_scene(assets.load_skybox("colors", device=dev),
+                              n_spheres, cfg.width, cfg.height,
+                              dtype=torch.float32, device=dev)
+    scene = scene.with_camera_frame(
+        orbit_camera_frame(3.3, dtype=torch.float32, device=dev))
+    o, d = generate_rays(scene, cfg)
+    o = Vec3(*(c.contiguous() for c in o))
+    stats = nearest_bar(dense_nearest(scene.spheres, scene.triangles, o, d),
+                        mesh.cluster_nearest_cuda(scene.clusters, o, d))
+    stats["subclusters"] = scene.clusters.kb_sph + scene.clusters.kb_tri
+    stats["layout"] = mesh.nearest_layout(o.x.numel())
+    return stats
+
+
 def nearest_bar(ref, out) -> dict:
     """cluster_nearest against the dense tester: t bit-equal (inf on the
     same misses), ids equal."""
@@ -621,6 +775,116 @@ def narrow_work(boxes, o, d, limit):
         objs += (live @ n).sum(dtype=torch.float64)
         flops += (live @ ops).sum(dtype=torch.float64)
     return objs, flops
+
+
+def walk_work(pack, o, d) -> dict:
+    """Replay cluster_nearest_kernel's walk (csrc/mesh.cu, mode "cull") in
+    torch on the rays (o, d), quarter by quarter in index order,
+    vectorized over the rays: the slab test on the kernel tables' widened
+    boxes with the clamped 1/d, the skip of a quarter entered after the
+    running best t, and the quarter's narrow tests by
+    ``mesh.dense.nearest_arrays`` on its objects in id order, folded into
+    the running (t, id) with the lowest id winning a tie. Returns the
+    final ``hit`` (a NearestHit, which must equal the kernel's and
+    ``cluster_nearest_plain``'s bit for bit), the narrow tests of each ray
+    (``tests``), the box-table row of the first quarter each ray
+    narrow-tests (``first``, -1 for none), and for warps of 32
+    consecutive rays the lane tests, the
+    tests the warps issue (a quarter any lane takes costs its warp the
+    quarter's object count) and their ratio ``simt``, lane tests over 32
+    times the issued ones."""
+    import torch
+
+    from ttrt_torch.kernels.mesh import _float32_rays, _tables
+    from ttrt_torch.mesh.dense import NearestHit, nearest_arrays
+    from ttrt_torch.vec import Vec3
+
+    tab = _tables(pack)
+    rays = _float32_rays(o, d)
+    R, dev = rays[0].numel(), rays[0].device
+    best_t = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
+    best_id = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    tests = torch.zeros(R, dtype=torch.int64, device=dev)
+    first = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    n_warps = (R + 31) // 32
+    warp_tests = 0
+    inv = []
+    for dc in rays[3:]:
+        m = torch.clamp_min(dc.abs(), 1e-12)
+        inv.append(1.0 / torch.where(dc >= 0.0, m, -m))
+    qbox = tab.qbox
+    counts = qbox[:, 6].to(torch.int64).tolist()
+    for row, n in enumerate(counts):
+        if n == 0:
+            continue
+        lo, hi = qbox[row, :3], qbox[row, 3:6]
+        tn = tf = None
+        for i in range(3):
+            t1 = (lo[i] - rays[i]) * inv[i]
+            t2 = (hi[i] - rays[i]) * inv[i]
+            near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            tn = near if tn is None else torch.maximum(tn, near)
+            tf = far if tf is None else torch.minimum(tf, far)
+        take = (tf >= torch.clamp_min(tn, 0.0)) & ~(tn > best_t)
+        lanes = torch.zeros(n_warps * 32, dtype=torch.bool, device=dev)
+        lanes[:R] = take
+        warp_tests += int(lanes.view(n_warps, 32).any(1).sum()) * n
+        idx = torch.nonzero(take)[:, 0]
+        if idx.numel() == 0:
+            continue
+        tests[idx] += n
+        first[idx] = torch.where(first[idx] < 0, row, first[idx])
+        sub, q = divmod(row, 4)
+        is_tri = sub >= tab.kb_sph
+        base = (sub - tab.kb_sph if is_tri else sub) * 128 + q * 32
+        ids = (tab.tri_id if is_tri else tab.sph_id)[base:base + n]
+        ids, order = torch.sort(ids)
+        objs = (tab.tri[base:base + n, :9] if is_tri
+                else tab.sph[base:base + n])[order]
+        gh = nearest_arrays(None if is_tri else objs,
+                            objs if is_tri else None, 0,
+                            Vec3(*(r[idx] for r in rays[:3])),
+                            Vec3(*(r[idx] for r in rays[3:])))
+        cand = torch.where(gh.obj >= 0, ids[torch.clamp_min(gh.obj, 0).long()],
+                           -1)
+        bt, bi = best_t[idx], best_id[idx]
+        win = (gh.t < bt) | ((gh.t == bt) & (cand >= 0) & (cand < bi))
+        best_t[idx] = torch.where(win, gh.t, bt)
+        best_id[idx] = torch.where(win, cand, bi).to(torch.int32)
+    lane_tests = int(tests.sum())
+    return {"hit": NearestHit(best_t, best_id), "tests": tests,
+            "first": first, "lane_tests": lane_tests, "warp_tests": warp_tests,
+            "simt": lane_tests / (32 * warp_tests) if warp_tests else 1.0}
+
+
+def eager_batches(scene, cfg) -> list:
+    """The ray batches that one frame of the eager integrator
+    (``render.integrator.render_frame``) hands ``cluster_nearest_cuda``,
+    in call order, as flat (o, d) Vec3 pairs: for each bounce its
+    nearest-hit batch, then one shadow batch a light (the directional
+    lights first). Every batch has the frame's full length, dead rays
+    included, in pixel-major order. They are copied where the integrator
+    dispatches a trace (``render.dispatch``), whose ``MeshScene`` tracer
+    hands its rays to the wrapper unchanged; the wrapper and its launch
+    count are left alone."""
+    from ttrt_torch.mesh.scene import MeshScene, trace_ray_mesh
+    from ttrt_torch.render import dispatch
+    from ttrt_torch.render.integrator import render_frame
+    from ttrt_torch.vec import Vec3
+
+    calls = []
+
+    def record(scene, o, d, **kw):
+        calls.append(tuple(Vec3(*(c.reshape(-1).clone() for c in v))
+                           for v in (o, d)))
+        return trace_ray_mesh(scene, o, d, **kw)
+
+    dispatch.register_trace(MeshScene, record)
+    try:
+        render_frame(scene, cfg)
+    finally:
+        dispatch.register_trace(MeshScene, trace_ray_mesh)
+    return calls
 
 
 def frame_work(scene, cfg, boxes) -> dict:
@@ -800,18 +1064,28 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _kernel_ms(fn, name: str, reps: int = 20) -> float:
-    """Mean device time of the one kernel whose name holds ``name`` over
-    ``reps`` calls of ``fn``, from torch.profiler."""
+def _kernel_ms(fn, name: str, reps: int = 20) -> tuple:
+    """(ms, how): the mean device time of the one kernel whose name holds
+    ``name`` over ``reps`` calls of ``fn``, from torch.profiler, and how it
+    was measured, for the line that prints it. The profiler has come back
+    without the kernel's events (the CUPTI trace is not always delivered):
+    it is asked three times, then the wrapper's median by CUDA events is
+    returned instead, and ``how`` says so."""
     import torch
 
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    (row,) = [e for e in prof.key_averages() if name in e.key]
-    return row.self_device_time_total / row.count / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if name in e.key]
+        if len(rows) == 1:
+            return (rows[0].self_device_time_total / rows[0].count / 1e3,
+                    f"kernel alone, torch.profiler, mean of {reps}")
+    return (_median_ms(fn, reps),
+            f"NOT the kernel alone: the wrapper by CUDA events, median of "
+            f"{reps}, torch.profiler gave no {name} row")
 
 
 def _ptxas_lines(report: str, name: str = "mesh_fused_kernel") -> list:
@@ -876,7 +1150,7 @@ def main() -> int:
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import build
     from ttrt_torch.kernels.render import (render_frame_cuda,
-                                           render_frame_plain)
+                                           render_frame_plain, render_layout)
     from ttrt_torch.scene import demo_scene
     from ttrt_torch.term.encoder import ansi_template, encode_ansi_frame
     from ttrt_torch.utils.profiling import StageTimers
@@ -918,6 +1192,10 @@ def main() -> int:
         stats = plain_bar(fb_p.to_array().cpu().numpy(), out, rays_p, rays_k)
         max_abs_err = max(max_abs_err, stats["max_abs"])
         print(f"phase 2: {sky} t={t} {flags or ''} {json.dumps(stats)}")
+    # the launch shapes the full frames do not take, at reduced sizes
+    for case in RENDER_CASES:
+        stats = render_case(dev, case)
+        print(f"phase 2: {case.label}: {json.dumps(stats)}")
     torch.cuda.synchronize()
 
     # -- phase 3: kernel vs the stored JAX oracle ----------------------------
@@ -932,7 +1210,7 @@ def main() -> int:
     ms = _median_ms(lambda: render_frame_cuda(scene, full, count_rays=False))
     plain_ms = _median_ms(
         lambda: render_frame_plain(scene, full, count_rays=False), warmup=1)
-    kernel_device_ms = _kernel_ms(
+    kernel_device_ms, kernel_how = _kernel_ms(
         lambda: render_frame_cuda(scene, full, count_rays=False),
         "render_kernel")
     fb, _ = render_frame_cuda(scene, full, count_rays=False)
@@ -954,9 +1232,12 @@ def main() -> int:
     print(f"phase 4 [{card}]: 480x280x10spp, 10 bounces: kernel {ms:.4f} "
           f"ms/frame, plain version {plain_ms:.3f} ms/frame, {rays} traces "
           f"= {rays / ms / 1e3:.1f} Mray/s (kernel), "
-          f"{rays / plain_ms / 1e3:.1f} Mray/s (plain); the kernel alone "
-          f"{kernel_device_ms:.4f} ms of device time (torch.profiler, mean "
-          f"of 20)")
+          f"{rays / plain_ms / 1e3:.1f} Mray/s (plain); the kernel "
+          f"{kernel_device_ms:.4f} ms of device time ({kernel_how})")
+    print(f"phase 4: render kernel's launch: "
+          f"{json.dumps(render_layout(scene, full))}")
+    for line in _ptxas_lines(report, "render_kernel"):
+        print(f"phase 4: ptxas: {line}")
     print(f"phase 4 [{card}]: ANSI encode {encode_ms:.4f} ms, copy of "
           f"{buf.numel()} bytes to the host "
           f"{1e3 * statistics.median(copy_s):.4f} ms, write "
@@ -1100,6 +1381,23 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     stats = nearest_bar(ref2, mesh.cluster_nearest_cuda(pack, o2, d2))
     nearest_err = max(nearest_err, stats["max_abs_t"])
     print(f"phase B: first-bounce rays, mode cull: {json.dumps(stats)}")
+    # the eager integrator's own batches (full length, dead rays included)
+    calls = eager_batches(scene, full)
+    batches = {"primary": calls[0], "bounce 3": calls[9],
+               "shadow": calls[2]}
+    n_calls = len(calls)
+    del calls
+    plain_hits = {}
+    for label, (ob, db) in batches.items():
+        plain_hits[label] = mesh.cluster_nearest_plain(pack, ob, db)
+        stats = nearest_bar(plain_hits[label],
+                            mesh.cluster_nearest_cuda(pack, ob, db))
+        nearest_err = max(nearest_err, stats["max_abs_t"])
+        print(f"phase B: the eager frame's {label} batch (of {n_calls}), "
+              f"vs cluster_nearest_plain: {json.dumps(stats)}")
+    stats = nearest_case(dev, 240_000)
+    print(f"phase B: 240000 spheres, 64x32x2 primary rays vs the dense "
+          f"tester: {json.dumps(stats)}")
     torch.cuda.synchronize()
 
     # -- phase C: the fused kernel vs the stored JAX oracle ------------------
@@ -1112,8 +1410,8 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     _, rays = fused_cuda(scene, full)
     rays = int(rays)
     fused_ms = _median_ms(lambda: fused_cuda(scene, full))
-    fused_kernel_ms = _kernel_ms(lambda: fused_cuda(scene, full),
-                                 "mesh_fused_kernel", reps=5)
+    fused_kernel_ms, fused_how = _kernel_ms(lambda: fused_cuda(scene, full),
+                                            "mesh_fused_kernel", reps=5)
     fused_plain_ms = _median_ms(lambda: fused_plain(scene, full), reps=1,
                                 warmup=0)
     table_bytes = sum(v.numel() * v.element_size() for v in pack.tables
@@ -1131,8 +1429,8 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     print(f"phase D [{card}]: fused kernel, 480x280x10spp, 10 bounces, "
           f"{N_SPHERES} spheres: {rays} traces; wrapper {fused_ms:.4f} "
           f"ms/frame = {rays / fused_ms / 1e3:.1f} Mray/s (CUDA events, "
-          f"median of 20), kernel alone {fused_kernel_ms:.4f} ms "
-          f"(torch.profiler, mean of 5), plain version {fused_plain_ms:.3f} "
+          f"median of 20), kernel {fused_kernel_ms:.4f} ms ({fused_how}), "
+          f"plain version {fused_plain_ms:.3f} "
           f"ms; bound {fused_bound[0]:.4f} ms by {fused_bound[1]} "
           f"({n_quarters} slab tests a trace; narrow tests counted on every "
           f"trace of the frame, [traces, mean a trace] by kind: "
@@ -1151,37 +1449,61 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     one_ms = _median_ms(lambda: fused_cuda(scene, full), reps=3, warmup=0)
     set_ms = _median_ms(lambda: on_streams(streams, bands), reps=3,
                         warmup=0)
-    one_band_ms = _kernel_ms(bands[0], "mesh_fused_kernel", reps=3)
+    one_band_ms, one_band_how = _kernel_ms(bands[0], "mesh_fused_kernel",
+                                           reps=3)
     print(f"phase D [{card}]: the same frame as {len(bands)} one-sample sum "
           f"bands on as many streams {set_ms:.4f} ms against one launch "
           f"{one_ms:.4f} ms ({set_ms / one_ms:.3f}; CUDA events, medians "
-          f"of 3); one such band alone {one_band_ms:.4f} ms (torch.profiler, "
-          f"mean of 3)")
+          f"of 3); one such band {one_band_ms:.4f} ms ({one_band_how})")
 
     n_rays = o.x.numel()
     near_ms = _median_ms(lambda: mesh.cluster_nearest_cuda(pack, o, d))
     dense_ms = _median_ms(
         lambda: dense_nearest(scene.spheres, scene.triangles, o, d), reps=3,
         warmup=1)
-    t_best = mesh.cluster_nearest_cuda(pack, o, d).t
-    near_objs, near_ops = narrow_work(boxes, o, d, t_best)
-    near_bound = bound_ms(n_rays * n_quarters * SLAB_OPS + float(near_ops),
-                          table_bytes + 32 * n_rays)
     print(f"phase D [{card}]: cluster_nearest on the {n_rays} primary rays: "
-          f"{near_ms:.4f} ms = {n_rays / near_ms / 1e3:.1f} Mray/s (CUDA "
-          f"events, median of 20), dense tester {dense_ms:.3f} ms; bound "
-          f"{near_bound[0]:.4f} ms by {near_bound[1]} ({n_quarters} slab "
-          f"tests and {float(near_objs) / n_rays:.2f} narrow tests a ray)")
+          f"wrapper {near_ms:.4f} ms = {n_rays / near_ms / 1e3:.1f} Mray/s "
+          f"(CUDA events, median of 20), dense tester {dense_ms:.3f} ms; "
+          f"launch {json.dumps(mesh.nearest_layout(n_rays))}")
+    for line in _ptxas_lines(report, "cluster_nearest_kernel"):
+        print(f"phase D: ptxas: {line}")
+    # each batch: the kernel alone, its bound (narrow_work's floor) and the
+    # walk's own work (walk_work, equal to the kernel and the plain version)
+    for label, (ob, db) in batches.items():
+        hit = mesh.cluster_nearest_cuda(pack, ob, db)
+        alone_ms, alone_how = _kernel_ms(
+            lambda: mesh.cluster_nearest_cuda(pack, ob, db),
+            "cluster_nearest_kernel")
+        objs, ops = narrow_work(boxes, ob, db, hit.t)
+        n_b = ob.x.numel()
+        bound = bound_ms(n_b * n_quarters * SLAB_OPS + float(ops),
+                         table_bytes + 32 * n_b)
+        walk = walk_work(pack, ob, db)
+        nearest_bar(hit, walk["hit"])
+        nearest_bar(plain_hits[label], walk["hit"])
+        if label == "primary":
+            near_bound = bound
+        print(f"phase D [{card}]: cluster_nearest, the eager frame's {label} "
+              f"batch ({n_b} rays, {int((hit.obj >= 0).sum())} hits): kernel "
+              f"{alone_ms:.4f} ms ({alone_how}); bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({n_quarters} slab tests and "
+              f"{float(objs) / n_b:.2f} narrow tests a ray, the floor); the "
+              f"index-order walk makes {walk['lane_tests'] / n_b:.2f} narrow "
+              f"tests a ray ({walk['lane_tests'] / float(objs):.3f}x the "
+              f"floor), its warps of 32 rays issue "
+              f"{walk['warp_tests'] / ((n_b + 31) // 32):.2f} a warp, SIMT "
+              f"efficiency {walk['simt']:.4f}; the walk's replay equals the "
+              f"kernel and cluster_nearest_plain bit for bit")
 
     big = scene_at(3.3, n=100_000)
     _, big_rays = fused_cuda(big, full)
     big_ms = _median_ms(lambda: fused_cuda(big, full), reps=5, warmup=1)
-    big_kernel_ms = _kernel_ms(lambda: fused_cuda(big, full),
-                               "mesh_fused_kernel", reps=3)
+    big_kernel_ms, big_how = _kernel_ms(lambda: fused_cuda(big, full),
+                                        "mesh_fused_kernel", reps=3)
     print(f"phase D [{card}]: fused kernel at 100000 spheres: "
           f"{int(big_rays)} traces, wrapper {big_ms:.4f} ms/frame = "
           f"{int(big_rays) / big_ms / 1e3:.1f} Mray/s (median of 5), kernel "
-          f"alone {big_kernel_ms:.4f} ms (torch.profiler, mean of 3); "
+          f"{big_kernel_ms:.4f} ms ({big_how}); "
           f"launch {json.dumps(mesh_fused.fused_layout(big, full))}")
     del big
     torch.cuda.synchronize()
@@ -1310,7 +1632,7 @@ def pathtrace_phases(card: str, dev, full) -> dict:
     traces = pathtrace.total_traces(work, lights.count)
     pt_ms = _median_ms(
         lambda: pt_cuda(scene, lights, full, seed, count_rays=False))
-    pt_kernel_ms = _kernel_ms(
+    pt_kernel_ms, pt_how = _kernel_ms(
         lambda: pt_cuda(scene, lights, full, seed, count_rays=False),
         "pathtrace_kernel")
     pt_plain_ms = _median_ms(
@@ -1325,9 +1647,8 @@ def pathtrace_phases(card: str, dev, full) -> dict:
           f"colors t=0.7: work (nearest-hit traces, hits, unblocked shadow "
           f"rays) {[int(v) for v in work]} = {traces} traces; wrapper "
           f"{pt_ms:.4f} ms/frame = {traces / pt_ms / 1e3:.1f} Mray/s (CUDA "
-          f"events, median of 20), kernel alone {pt_kernel_ms:.4f} ms = "
-          f"{traces / pt_kernel_ms / 1e3:.1f} Mray/s (torch.profiler, mean "
-          f"of 20), plain version {pt_plain_ms:.3f} ms (median of 3); bound "
+          f"events, median of 20), kernel {pt_kernel_ms:.4f} ms = "
+          f"{traces / pt_kernel_ms / 1e3:.1f} Mray/s ({pt_how}), plain version {pt_plain_ms:.3f} ms (median of 3); bound "
           f"{pt_bound[0]:.4f} ms by {pt_bound[1]}")
 
     # -- phase P4: the --pathtrace main path ----------------------------------
@@ -1501,23 +1822,22 @@ def sky_phases(card: str, dev, full, fused_work: dict) -> list:
         run = lambda: render.render_frame_cuda(scene, cfg,  # noqa: E731
                                                count_rays=False)
         demo_ms[bilinear] = (_median_ms(run),
-                             _kernel_ms(run, "render_kernel"))
+                             *_kernel_ms(run, "render_kernel"))
         print(f"phase S4 [{card}]: demo, milky_way, bilinear={bilinear}, "
               f"480x280x10spp, 10 bounces: {int(rays)} traces; wrapper "
               f"{demo_ms[bilinear][0]:.4f} ms (CUDA events, median of 20), "
-              f"kernel alone {demo_ms[bilinear][1]:.4f} ms (torch.profiler, "
-              f"mean of 20)")
+              f"kernel {demo_ms[bilinear][1]:.4f} ms ({demo_ms[bilinear][2]})")
     demo_rays = int(render.render_frame_cuda(scene, full)[1])
     demo_plain_ms = _median_ms(
         lambda: render.render_frame_plain(scene, full, count_rays=False),
         reps=5, warmup=1)
     many = many_at(fused_work["t"])
     fused_ms = _median_ms(lambda: fused_cuda(many, full))
-    fused_kernel_ms = _kernel_ms(lambda: fused_cuda(many, full),
-                                 "mesh_fused_kernel", reps=5)
+    fused_kernel_ms, fused_how = _kernel_ms(lambda: fused_cuda(many, full),
+                                            "mesh_fused_kernel", reps=5)
     print(f"phase S4 [{card}]: fused, milky_way, t={fused_work['t']}: "
-          f"wrapper {fused_ms:.4f} ms (median of 20), kernel alone "
-          f"{fused_kernel_ms:.4f} ms (mean of 5), plain version "
+          f"wrapper {fused_ms:.4f} ms (median of 20), kernel "
+          f"{fused_kernel_ms:.4f} ms ({fused_how}), plain version "
           f"{fused_plain_ms:.3f} ms (phase S2, host clock); demo plain "
           f"version {demo_plain_ms:.3f} ms (median of 5)")
 
@@ -1597,15 +1917,15 @@ def sky_phases(card: str, dev, full, fused_work: dict) -> list:
         nearest * (PT_TRACE_OPS + 6 * PT_TRACE_SPHERE_OPS),
         4 * (17 + 9 * 6 + 16 + 6 + 7) + 4 * w_k.numel())
     sw_ms = _median_ms(lambda: render.sky_weights_cuda(scene, full))
-    sw_kernel_ms = _kernel_ms(lambda: render.sky_weights_cuda(scene, full),
-                              "sky_weight_kernel")
+    sw_kernel_ms, sw_how = _kernel_ms(
+        lambda: render.sky_weights_cuda(scene, full), "sky_weight_kernel")
     sw_plain_ms = _median_ms(lambda: sw_plain(scene, full), reps=5,
                              warmup=1)
     print(f"phase S5 [{card}]: sky weights, 480x280x10, 10 bounces, t=1.5: "
           f"{w_k.numel()} rays, {nearest} nearest-hit traces, {sw_diff} "
           f"differ from the plain version (max |d| {sw_err}); wrapper "
-          f"{sw_ms:.4f} ms (median of 20), kernel alone {sw_kernel_ms:.4f} "
-          f"ms (mean of 20), plain version {sw_plain_ms:.3f} ms (median of "
+          f"{sw_ms:.4f} ms (median of 20), kernel {sw_kernel_ms:.4f} "
+          f"ms ({sw_how}), plain version {sw_plain_ms:.3f} ms (median of "
           f"5); bound {sw_bound[0]:.4f} ms by {sw_bound[1]}; launches "
           f"(kernel, plain) in this phase's call {sw_launches}")
 
@@ -1637,14 +1957,14 @@ def sky_phases(card: str, dev, full, fused_work: dict) -> list:
         if sky == "colors":
             rate_rays = int(rays_k)
             rate_ms = _median_ms(lambda: pr_cuda(s6, cfg))
-            rate_kernel_ms = _kernel_ms(lambda: pr_cuda(s6, cfg),
-                                        "render_kernel")
+            rate_kernel_ms, rate_how = _kernel_ms(lambda: pr_cuda(s6, cfg),
+                                                  "render_kernel")
             rate_plain_ms = _median_ms(lambda: pr_plain(s6, cfg), reps=5,
                                        warmup=1)
     rate_bound = demo_bound(rate_rays, n_px)
     print(f"phase S6 [{card}]: pixel rate, colors t=1.5: wrapper "
-          f"{rate_ms:.4f} ms (median of 20), kernel alone "
-          f"{rate_kernel_ms:.4f} ms (mean of 20), plain version "
+          f"{rate_ms:.4f} ms (median of 20), kernel "
+          f"{rate_kernel_ms:.4f} ms ({rate_how}), plain version "
           f"{rate_plain_ms:.3f} ms (median of 5); bound {rate_bound[0]:.4f} "
           f"ms by {rate_bound[1]}; launches (kernel, plain) in this phase's "
           f"call {rate_launches}")
@@ -1817,17 +2137,18 @@ def mesh_axis_phases(card: str, dev, full) -> list:
     _, band_rays = render.render_band_cuda(scene, full, reduce="sum")
     run = lambda: render.render_band_cuda(  # noqa: E731
         scene, full, reduce="sum", count_rays=False)
-    band_ms, band_kernel_ms = _median_ms(run), _kernel_ms(run, "render_kernel")
+    band_ms = _median_ms(run)
+    band_kernel_ms, band_how = _kernel_ms(run, "render_kernel")
     band_plain_ms = _median_ms(lambda: render.render_band_plain(
         scene, full, reduce="sum", count_rays=False), reps=3, warmup=1)
-    frame_kernel_ms = _kernel_ms(
+    frame_kernel_ms, frame_how = _kernel_ms(
         lambda: render.render_frame_cuda(scene, full, count_rays=False),
         "render_kernel")
     band_bound = demo_bound(int(band_rays), n_px)
     print(f"phase M1 [{card}]: the whole-frame sum band, colors t=1.5: "
-          f"wrapper {band_ms:.4f} ms (median of 20), kernel alone "
-          f"{band_kernel_ms:.4f} ms (mean of 20), the average "
-          f"(render_frame_cuda) alone {frame_kernel_ms:.4f} ms, plain "
+          f"wrapper {band_ms:.4f} ms (median of 20), kernel "
+          f"{band_kernel_ms:.4f} ms ({band_how}), the average "
+          f"(render_frame_cuda) {frame_kernel_ms:.4f} ms ({frame_how}), plain "
           f"{band_plain_ms:.3f} ms; bound {band_bound[0]:.4f} ms by "
           f"{band_bound[1]}")
 
@@ -1858,9 +2179,9 @@ def mesh_axis_phases(card: str, dev, full) -> list:
     assert abs(gap) < PT_ESTIMATOR_MEAN_TOL, gap
     pt_run = lambda: pathtrace.pathtrace_frame_cuda(  # noqa: E731
         scene, lights, full, seed, count_rays=False, reduce="sum")
-    pt_ms, pt_kernel_ms = _median_ms(pt_run), _kernel_ms(pt_run,
-                                                         "pathtrace_kernel")
-    pt_mean_kernel_ms = _kernel_ms(
+    pt_ms = _median_ms(pt_run)
+    pt_kernel_ms, pt_how = _kernel_ms(pt_run, "pathtrace_kernel")
+    pt_mean_kernel_ms, pt_mean_how = _kernel_ms(
         lambda: pathtrace.pathtrace_frame_cuda(scene, lights, full, seed,
                                                count_rays=False),
         "pathtrace_kernel")
@@ -1873,8 +2194,8 @@ def mesh_axis_phases(card: str, dev, full) -> list:
         4 * (17 + 9 * scene.spheres.count + 16 + 8 * lights.count)
         + 20 * n_px)
     print(f"phase M2 [{card}]: sum mode wrapper {pt_ms:.4f} ms (median of "
-          f"20), kernel alone {pt_kernel_ms:.4f} ms, the mean mode alone "
-          f"{pt_mean_kernel_ms:.4f} ms (means of 20), plain "
+          f"20), kernel {pt_kernel_ms:.4f} ms ({pt_how}), the mean mode "
+          f"{pt_mean_kernel_ms:.4f} ms ({pt_mean_how}), plain "
           f"{pt_plain_ms:.3f} ms; bound {pt_bound[0]:.4f} ms by "
           f"{pt_bound[1]}")
 

@@ -106,6 +106,9 @@ def load() -> ctypes.CDLL:
     # scale, pixel_rate, out_rgb, out_count, stream
     lib.ttrt_render.restype = ctypes.c_int
     lib.ttrt_render.argtypes = [p] + [i] * 14 + [p, f, i, p, p, p]
+    # n_sph, n_dl, n_pl, W, n_rows, n_samples, pixel_rate, out[10]
+    lib.ttrt_render_layout.restype = ctypes.c_int
+    lib.ttrt_render_layout.argtypes = [i] * 7 + [p]
     # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w, stream
     lib.ttrt_sky_weights.restype = ctypes.c_int
     lib.ttrt_sky_weights.argtypes = [p] + [i] * 7 + [p, p]
@@ -124,6 +127,9 @@ def load() -> ctypes.CDLL:
     lib.ttrt_cluster_nearest.restype = ctypes.c_int
     lib.ttrt_cluster_nearest.argtypes = ([p] * 6 + [i] + [p] * 5
                                          + [i, i, i, p, p, p])
+    # n, out[6]
+    lib.ttrt_cluster_nearest_layout.restype = ctypes.c_int
+    lib.ttrt_cluster_nearest_layout.argtypes = [i, p]
     # scene_buf, n_sph, n_al, W, H, N, bounce_limit, sky_kind, sky_dim,
     # bilinear, reduce_sum, seed, out_rgb, out_count, stream
     lib.ttrt_pathtrace.restype = ctypes.c_int

@@ -7,7 +7,8 @@
 //   Hit  trace(ox, oy, oz, dx, dy, dz) const;    // nearest hit + fixups
 //   bool blocked(px, py, pz, ldx, ldy, ldz, has_tmax, tmax) const;
 //
-// and render_pixel runs the reference's frame loop over it. Floating point
+// and trace_sample runs one AA sample of the reference's frame loop over
+// it; sample_threads sums a pixel's samples. Floating point
 // rules (build with --fmad=false, no fast math; the fmaf/dot3 contractions
 // written out) are explained in render.cu.
 
@@ -393,8 +394,7 @@ __device__ Sample trace_sample(const Tracer& tr, const Lights& L,
 // One sample's color: the sky folded in at its final direction when the
 // sky weight is positive, then the contribution-total normalization. A
 // sample whose sky weight is 0 skips the sky: pr + 0 * sky == pr exactly,
-// so it loads no texel. render_pixel adds these in sample order; so does
-// mesh.cu's kernel, which spreads a pixel's samples over threads.
+// so it loads no texel. sample_threads adds these in sample order.
 __device__ __forceinline__ void sample_color(const Sample& s, const Sky& sky,
                                              bool subtract, float& pr,
                                              float& pg, float& pb) {
@@ -417,36 +417,183 @@ __device__ __forceinline__ void sample_color(const Sample& s, const Sky& sky,
   }
 }
 
-// The frame loop of one pixel: n_samples AA samples out of N
-// (trace_sample), each colored by sample_color. Returns the in-order sum of
-// the samples' colors and the pixel's bounces and hits (its traces are
-// bounces + hits * n_lights).
-template <class Tracer>
-__device__ void render_pixel(const Tracer& tr, const Lights& L,
-                             const float* cam, int col_i, int row_i, int W,
-                             int H, int N, int n_samples, int bounce_limit,
-                             bool specular, bool subtract, const Sky& sky,
-                             float& acc_r, float& acc_g, float& acc_b,
-                             int& bounces, int& hits) {
-  acc_r = 0.0f; acc_g = 0.0f; acc_b = 0.0f;
-  bounces = 0;
-  hits = 0;
-  for (int k = 0; k < n_samples; ++k) {
-    Sample s = trace_sample<true>(tr, L, cam, col_i, row_i, k, W, H, N,
-                                  bounce_limit, specular, subtract);
-    bounces += s.bounces;
-    hits += s.hits;
-    float pr, pg, pb;
-    sample_color(s, sky, subtract, pr, pg, pb);
-    acc_r = acc_r + pr;
-    acc_g = acc_g + pg;
-    acc_b = acc_b + pb;
+// A pixel's samples on neighbouring threads of one block (render.cu's and
+// mesh.cu's frame kernels). A pixel's S sample threads take all its
+// samples in one round up to MAX_ROUND, else the fewest rounds of at most
+// MAX_ROUND, as even as they go; a block holds P = blockDim.x / S pixels,
+// consecutive in the band's row-major order.
+constexpr int MAX_ROUND = 32;
+
+// Shared memory of the sample sums of a block of `threads` threads and
+// `pixels` pixels: each thread's color of the round (3 floats) and its
+// count (an unsigned), and each pixel's sum between rounds (3 floats).
+inline size_t sample_sum_bytes(int threads, int pixels) {
+  return (3 * sizeof(float) + sizeof(unsigned)) * (size_t)threads +
+         3 * sizeof(float) * (size_t)pixels;
+}
+
+struct SampleSums {
+  float* col_r;
+  float* col_g;
+  float* col_b;
+  unsigned* count;
+  float* acc;
+  int P;        // pixels of the block
+  float* end;   // the first float past the sums
+};
+
+// The sample sums of this block's shared memory from `base` on.
+__device__ __forceinline__ SampleSums sample_sums(float* base, int S) {
+  const int nt = blockDim.x;
+  SampleSums sm;
+  sm.P = nt / S;
+  sm.col_r = base;
+  sm.col_g = sm.col_r + nt;
+  sm.col_b = sm.col_g + nt;
+  sm.count = reinterpret_cast<unsigned*>(sm.col_b + nt);
+  sm.acc = reinterpret_cast<float*>(sm.count + nt);
+  sm.end = sm.acc + 3 * sm.P;
+  return sm;
+}
+
+// A pixel's frame loop with its samples spread over its S threads:
+// thread s of the pixel takes sample k0 + s of each round k0 = 0, S, 2S,
+// ..., through sample(col, row, k, r, g, b), which returns the sample's
+// count. The pixel's first thread adds each round's colors in sample
+// order, from 0.0f, the sum between rounds waiting in shared memory, so
+// the sum rounds as the plain versions' in-order sum over the samples
+// (render.py::render_band_plain, mesh_fused.py's), and writes it times
+// `scale`; the counts add as unsigned integers, exact in any order.
+// ROUNDS = false is the one-round launch (S == n_samples): without the
+// round loop nothing computed before the sample is kept across it. Every
+// thread of the block must call it (it synchronizes the block).
+template <bool ROUNDS, class SampleFn>
+__device__ __forceinline__ void sample_threads(
+    const SampleSums& sm, int S, int W, int n_rows, int n_samples,
+    float scale, float* __restrict__ out_rgb, int* __restrict__ out_count,
+    SampleFn sample) {
+  const int tid = threadIdx.x;
+  const int p = tid / S, s = tid - p * S;
+  const int pix = blockIdx.x * sm.P + p;
+  const int n_pixels = W * n_rows;
+  const bool live = pix < n_pixels;
+  const int row = pix / W, col = pix - row * W;
+  sm.count[tid] = 0;
+  const int n_rounds = ROUNDS ? (n_samples + S - 1) / S : 1;
+  for (int round = 0; round < n_rounds; ++round) {
+    const int k0 = round * S;
+    if (k0 > 0) __syncthreads();  // the last round's colors are added
+    const int k = k0 + s;
+    if (live && k < n_samples) {
+      float pr, pg, pb;
+      sm.count[tid] += sample(col, row, k, pr, pg, pb);
+      sm.col_r[tid] = pr;
+      sm.col_g[tid] = pg;
+      sm.col_b[tid] = pb;
+    }
+    __syncthreads();
+    if (!live || s != 0) continue;
+    float r = 0.0f, g = 0.0f, b = 0.0f;
+    if (k0 > 0) {
+      r = sm.acc[p];
+      g = sm.acc[sm.P + p];
+      b = sm.acc[2 * sm.P + p];
+    }
+    const int m = min(S, n_samples - k0);
+    for (int j = 0; j < m; ++j) {
+      r = r + sm.col_r[tid + j];
+      g = g + sm.col_g[tid + j];
+      b = b + sm.col_b[tid + j];
+    }
+    if (k0 + S < n_samples) {
+      sm.acc[p] = r;
+      sm.acc[sm.P + p] = g;
+      sm.acc[2 * sm.P + p] = b;
+      continue;
+    }
+    unsigned total = 0;
+    for (int j = 0; j < S; ++j) total += sm.count[tid + j];
+    out_rgb[pix] = r * scale;
+    out_rgb[n_pixels + pix] = g * scale;
+    out_rgb[2 * n_pixels + pix] = b * scale;
+    out_count[pix] = (int)total;
   }
+}
+
+// The launch shape of a sample-thread kernel for a band.
+struct SampleShape {
+  int samples;   // S, sample threads of a pixel
+  int pixels;    // P, pixels of a block
+  int threads;   // P * S
+  int blocks;
+  size_t smem;   // dynamic shared memory of a block
+  bool rounds;   // more than one round of S samples
+  int resident;  // blocks an SM holds (the occupancy calculator's)
+};
+
+// S and whether a pixel's samples take rounds.
+inline void sample_rounds(int n_samples, SampleShape& sh) {
+  const int rounds = (n_samples + MAX_ROUND - 1) / MAX_ROUND;
+  sh.samples = (n_samples + rounds - 1) / rounds;
+  sh.rounds = rounds > 1;
+}
+
+// Let `kernel` take a block's whole opt-in shared memory; its size into
+// `optin`.
+template <class Kernel>
+cudaError_t allow_max_smem(Kernel kernel, int& optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return err;
+}
+
+// The block of `kernel` for n_pixels pixels of sh.samples threads each:
+// the smallest of block_min, 2 * block_min, ... block_max threads (whole
+// pixels) that keeps the most warps resident on an SM, with `fixed` bytes
+// of a block's shared memory and, when `sums`, its sample sums, at most
+// `max_smem` in all. Small blocks end sooner (a block lasts as long as
+// its slowest thread); a large `fixed` table leaves room for few blocks
+// an SM and calls for larger ones. sh.resident stays 0 when no block
+// fits.
+template <class Kernel>
+cudaError_t pick_block(Kernel kernel, size_t fixed, bool sums, int max_smem,
+                       int block_min, int block_max, long long n_pixels,
+                       SampleShape& sh) {
+  sh.pixels = sh.threads = sh.resident = sh.blocks = 0;
+  sh.smem = 0;
+  int best_warps = 0;
+  for (int b = block_min; b <= block_max; b *= 2) {
+    const int P = b / sh.samples, threads = P * sh.samples;
+    const size_t smem =
+        fixed + (sums ? sample_sum_bytes(threads, P) : (size_t)0);
+    if (smem > (size_t)max_smem) continue;
+    int resident = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    const int warps = resident * ((threads + 31) / 32);
+    if (warps > best_warps) {
+      best_warps = warps;
+      sh.pixels = P;
+      sh.threads = threads;
+      sh.smem = smem;
+      sh.resident = resident;
+    }
+  }
+  if (sh.resident > 0)
+    sh.blocks = (int)((n_pixels + sh.pixels - 1) / sh.pixels);
+  return cudaSuccess;
 }
 
 constexpr int SPHERE_FLOATS = 9;
 constexpr int PLANE_FLOATS = 16;
-// The demo scene's tracer for render_pixel (render.cu) and the path
+// The demo scene's tracer for render.cu's kernels and the path
 // tracer (pathtrace.cu): a linear scan of any number of spheres in index
 // order, then the ground plane, read from shared memory or, for a scene
 // too large for it, from the global scene buffer.

@@ -21,9 +21,10 @@
 // three pixels' jittered, nearly parallel rays; a block holds
 // P = block / S pixels, consecutive in the band's row-major order. Each
 // thread runs common.cuh's trace_sample<true> and the per-sample sky and
-// normalization of render_pixel (sample_color) for its sample; the
-// pixel's first thread adds the S colors from shared memory in sample
-// order, from 0.0f, and scales the sum, so the bits are render_pixel's.
+// normalization (sample_color) for its sample; the pixel's first thread
+// adds the S colors from shared memory in sample order, from 0.0f, and
+// scales the sum (common.cuh::sample_threads), so the bits are the plain
+// version's.
 // The full 480x280x10 frame is 11,200 blocks of 120 threads, about ten
 // waves at 8 blocks an SM, which the hardware block scheduler balances.
 // Each block first gathers the quarter-box table into the frame's visit
@@ -33,9 +34,15 @@
 // Past what a block can hold beside its samples, camera and lights
 // (about 1,760 subclusters, 225,000 spheres), the other instantiation
 // reads the table in place (SMEM_BOXES = false), as cluster_nearest_kernel
-// does. cluster_nearest_kernel keeps one thread per ray. Neither keeps the
-// TPU kernel's (ray tile, phase) grid, VMEM state, sublane-class partials
-// or two-level sweep, which worked around the TPU's scalar-sync cost.
+// does. Neither keeps the TPU kernel's (ray tile, phase) grid, VMEM
+// state, sublane-class partials or two-level sweep, which worked around
+// the TPU's scalar-sync cost.
+//
+// Design of cluster_nearest_kernel: one thread per ray, blocks of 128,
+// the eager integrator's batches of 1,344,000 rays about nine waves; it
+// walks with nearest() in index order (IndexBoxes). Staging its
+// 11,264-byte box table in shared memory lost on the bounce rays
+// (PERF.md); the table is read in place, through L1.
 //
 // The walk, the same in every layout: each trace walks the K subclusters in
 // the per-frame near-to-far order the wrapper computes (mesh_fused) or in
@@ -43,8 +50,15 @@
 // AABBs with the clamped 1/d (mesh_fused.py:283-288, :602-622), skips a
 // quarter whose entry time is past the best t so far, and narrow-tests the
 // quarter's real objects (32 Morton-consecutive ones, fewer at the end of
-// the pack). Shadow rays take the same walk and stop at the first blocker.
-// Only the addresses the boxes come from differ (TableBoxes, StagedBoxes).
+// the pack). nearest() takes a sphere's square root only for a hit (a
+// miss never uses it), and runs a quarter's narrow tests in a loop made
+// for its kind of object (narrow_quarter<TRI>), chosen once a subcluster.
+// Shadow rays take the same walk and stop at the first blocker. Only the
+// addresses the boxes come from differ (TableBoxes, StagedBoxes,
+// IndexBoxes). PERF.md records the walk bodies compared: making a
+// subcluster's four slab tests before its narrow tests (the same tests
+// in the same order) was faster on some nearest-hit batches and slower
+// on the fused kernel, so it went.
 // Sphere and triangle rows stay in device memory behind L1/L2: at 10k
 // spheres the pack is about 400 KB, more than a block's 227 KB of shared
 // memory.
@@ -69,7 +83,13 @@
 // (ttrt_torch/mesh/clusters.py::BOX_PAD) by more than the narrow tests'
 // rounding can place a hit outside it.
 //
-// What bounds it on this card: operations, not bytes. A 480x280x10x10 frame
+// What bounds them on this card: operations, not bytes. A batch of the
+// eager integrator (1,344,000 rays) needs 329 slab tests and 359-440
+// narrow tests a ray, 0.30-0.33 ms at the FP32 peak; the index-order
+// walk makes 1.1-1.2x those narrow tests, and on bounce rays the lanes of
+// a warp take different quarters (a warp issues about 7x its lanes'
+// tests on bounce 3's batch), which only a traversal change can undo.
+// For the fused kernel: a 480x280x10x10 frame
 // at 10k spheres reads the 0.7 MB pack and writes 2.2 MB, microseconds at
 // 3.35 TB/s, but performs 13.8 million traces, each with 329 slab tests
 // and hundreds of narrow tests (chip_smoke.py counts them; PERF.md gives
@@ -96,7 +116,6 @@ namespace {
 constexpr int QUARTERS = 4;       // culling boxes per subcluster
 constexpr int QBLOCK = 32;        // objects per quarter
 constexpr int SUB = QUARTERS * QBLOCK;  // objects per subcluster
-constexpr int NEAREST_BLOCK = 128;
 
 // The pack as the kernels read it (ttrt_torch/mesh/clusters.py::KernelTables),
 // objects in Morton order; subcluster `sub` of the spheres holds positions
@@ -112,7 +131,7 @@ struct MeshGeom {
   const float* tri_spec;
   const int* tri_id;
   const float4* qbox;     // 2 per quarter: lo xyz hi.x | hi.yz n_obj 0
-  const int* order;       // visit order of the K subclusters; null: 0..K-1
+  const int* order;       // mesh_fused's visit order of the K subclusters
   int kb_sph, kb_tri;
   bool cull;              // false: test every object (mode "dense")
 };
@@ -156,15 +175,22 @@ __device__ __forceinline__ int quarter(const float4* qbox, bool cull, int row,
 // the same order and run the same slab test on the same boxes; only the
 // addresses differ.
 // In place: the kernel tables' qbox, subcluster `sub`'s quarters at rows
-// 4*sub .. 4*sub+3, visited in `order` (null: index order).
+// 4*sub .. 4*sub+3, visited in `order`.
 struct TableBoxes {
   const float4* box;
   const int* order;
-  __device__ __forceinline__ int sub(int i) const {
-    return order != nullptr ? order[i] : i;
-  }
+  __device__ __forceinline__ int sub(int i) const { return order[i]; }
   __device__ __forceinline__ int row(int i, int sub, int q) const {
     return sub * QUARTERS + q;
+  }
+};
+
+// In index order: the kernel tables' qbox, subclusters 0..K-1.
+struct IndexBoxes {
+  const float4* box;
+  __device__ __forceinline__ int sub(int i) const { return i; }
+  __device__ __forceinline__ int row(int i, int sub, int q) const {
+    return i * QUARTERS + q;
   }
 };
 
@@ -212,16 +238,21 @@ __device__ __forceinline__ float cross_term(float a, float b, float c,
 }
 
 // Sphere narrow test: b = 2 (o.d - C.d), c = o.o - 2 C.o + ccr2,
-// disc = b*b - 4a*c, hit = disc >= 0 && b < 0 && c > 0.
-__device__ __forceinline__ bool sphere_t(const float4 c, const Ray& r,
-                                         float& t0) {
+// disc = b*b - 4a*c, hit = disc >= 0 && b < 0 && c > 0; sphere_root is
+// its t0.
+__device__ __forceinline__ bool sphere_hit(const float4 c, const Ray& r,
+                                           float& b, float& disc) {
   const float cd = dot_zyx(c.x, c.y, c.z, r.dx, r.dy, r.dz);
   const float co = dot_zyx(c.x, c.y, c.z, r.ox, r.oy, r.oz);
-  const float b = 2.0f * (r.od - cd);
+  b = 2.0f * (r.od - cd);
   const float cc = r.oo - 2.0f * co + c.w;
-  const float disc = fmaf(b, b, -(r.fa * cc));
-  t0 = (-b - sqrtf(fmaxf(disc, 0.0f))) * r.inv2a;
+  disc = fmaf(b, b, -(r.fa * cc));
   return disc >= 0.0f && b < 0.0f && cc > 0.0f;
+}
+
+__device__ __forceinline__ float sphere_root(float b, float disc,
+                                             const Ray& r) {
+  return (-b - sqrtf(fmaxf(disc, 0.0f))) * r.inv2a;
 }
 
 // Moller-Trumbore with the reference's plane epsilons
@@ -256,6 +287,54 @@ struct Nearest {
   bool tri;
 };
 
+// Narrow-tests the n objects of a quarter from position `base` of the
+// sphere (TRI = false) or triangle table and folds them into `best`, the
+// lowest id winning an exact tie in t.
+template <bool TRI>
+__device__ __forceinline__ void narrow_quarter(const MeshGeom& g,
+                                               const Ray& r, int base, int n,
+                                               Nearest& best) {
+  for (int j = 0; j < n; ++j) {
+    const int pos = base + j;
+    float t;
+    if (TRI) {
+      if (!tri_t(g.tri + 3 * pos, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t))
+        continue;
+    } else {
+      float b, disc;
+      if (!sphere_hit(g.sph[pos], r, b, disc)) continue;
+      t = sphere_root(b, disc, r);
+    }
+    if (t > best.t) continue;
+    const int id = TRI ? g.tri_id[pos] : g.sph_id[pos];
+    if (t < best.t || id < best.id) {
+      best.t = t;
+      best.id = id;
+      best.pos = pos;
+      best.tri = TRI;
+    }
+  }
+}
+
+// Visited subcluster i, subcluster `sub` of the spheres (TRI = false) or
+// the triangles: quarter by quarter, the slab test, then the narrow tests
+// if the ray enters the quarter no later than the best t so far.
+template <bool TRI, class Boxes>
+__device__ __forceinline__ void walk_subcluster(const MeshGeom& g,
+                                                const Boxes& bx, int i,
+                                                int sub, const Ray& r,
+                                                float ivx, float ivy,
+                                                float ivz, Nearest& best) {
+  const int row_sub = TRI ? sub + g.kb_sph : sub;
+  for (int q = 0; q < QUARTERS; ++q) {
+    float tn;
+    const int n = quarter(bx.box, g.cull, bx.row(i, row_sub, q), r.ox, r.oy,
+                          r.oz, ivx, ivy, ivz, tn);
+    if (n > 0 && !(tn > best.t))
+      narrow_quarter<TRI>(g, r, sub * SUB + q * QBLOCK, n, best);
+  }
+}
+
 // Nearest (t, original id) over the pack: the culled walk, with the
 // lowest id winning an exact tie in t.
 template <class Boxes>
@@ -271,32 +350,10 @@ __device__ Nearest nearest(const MeshGeom& g, const Boxes& bx, float ox,
   const int K = g.kb_sph + g.kb_tri;
   for (int i = 0; i < K; ++i) {
     const int sub = bx.sub(i);
-    const bool is_tri = sub >= g.kb_sph;
-    for (int q = 0; q < QUARTERS; ++q) {
-      float tn;
-      const int n = quarter(bx.box, g.cull, bx.row(i, sub, q), ox, oy, oz,
-                            ivx, ivy, ivz, tn);
-      if (n == 0 || tn > best.t) continue;
-      const int base = (is_tri ? sub - g.kb_sph : sub) * SUB + q * QBLOCK;
-      for (int j = 0; j < n; ++j) {
-        const int pos = base + j;
-        float t;
-        bool hit;
-        if (is_tri) {
-          hit = tri_t(g.tri + 3 * pos, ox, oy, oz, dx, dy, dz, t);
-        } else {
-          hit = sphere_t(g.sph[pos], r, t);
-        }
-        if (!hit || t > best.t) continue;
-        const int id = is_tri ? g.tri_id[pos] : g.sph_id[pos];
-        if (t < best.t || id < best.id) {
-          best.t = t;
-          best.id = id;
-          best.pos = pos;
-          best.tri = is_tri;
-        }
-      }
-    }
+    if (sub >= g.kb_sph)
+      walk_subcluster<true>(g, bx, i, sub - g.kb_sph, r, ivx, ivy, ivz, best);
+    else
+      walk_subcluster<false>(g, bx, i, sub, r, ivx, ivy, ivz, best);
   }
   return best;
 }
@@ -379,20 +436,16 @@ struct MeshTracer {
 // thousands of lights. More are read in place from their global arrays.
 constexpr size_t SMEM_LIGHT_BYTES = 48 * 1024;
 
-// The launch shape of mesh_fused_kernel. A pixel's samples run on
-// S <= MAX_ROUND threads of one block, in rounds of S when it has more; a
-// block holds P = block / S pixels, consecutive in the band's row-major
-// order. The block size is the smallest of FUSED_BLOCK, 2 * FUSED_BLOCK,
-// ... FUSED_MAX_THREADS that keeps the most warps resident on an SM: small
-// blocks end sooner (a block lasts as long as its slowest sample), and a
-// table of boxes too large for several small blocks an SM calls for larger
-// ones. The launch bounds hold a thread to
+// The launch shape of mesh_fused_kernel: a pixel's samples on S <=
+// MAX_ROUND threads of one block (common.cuh::sample_threads); the block
+// is the smallest of FUSED_BLOCK, 2 * FUSED_BLOCK, ... FUSED_MAX_THREADS
+// that keeps the most warps resident on an SM (common.cuh::pick_block).
+// The launch bounds hold a thread to
 // 65536 / (FUSED_MAX_THREADS * FUSED_MIN_BLOCKS) = 64 registers. PERF.md
 // records the layouts compared before these were kept.
 constexpr int FUSED_BLOCK = 128;
 constexpr int FUSED_MAX_THREADS = 512;
 constexpr int FUSED_MIN_BLOCKS = 2;
-constexpr int MAX_ROUND = 32;
 
 // Bytes of the staged boxes of K subclusters: 8 float4 each, then the
 // visit order, padded to whole float4s.
@@ -416,12 +469,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Dynamic shared memory of a block, in this order: with SMEM_BOXES the
 // quarter boxes gathered into the frame's visit order and the order
-// itself (staged_box_bytes); the colors of a round's samples (3 floats a
-// thread), the threads' trace counts (an int a thread) and the pixels'
-// sums between rounds (3 floats a pixel); with smem_lights the camera and
-// the lights. ROUNDS = false is the one-round launch (S == n_samples):
-// without the round loop nothing computed before the sample is kept
-// across it, so no register spills.
+// itself (staged_box_bytes); the sample sums (common.cuh::SampleSums);
+// with smem_lights the camera and the lights. ROUNDS = false is the
+// one-round launch (S == n_samples), without a register spill.
 template <bool SMEM_BOXES, bool ROUNDS>
 __global__ void __launch_bounds__(FUSED_MAX_THREADS, FUSED_MIN_BLOCKS)
 mesh_fused_kernel(const float* __restrict__ cam_in,
@@ -449,12 +499,7 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
     bx.order = order;
     tail = reinterpret_cast<float*>(order + ((K + 3) & ~3));
   }
-  const int P = nt / S;
-  float* col_r = tail;
-  float* col_g = col_r + nt;
-  float* col_b = col_g + nt;
-  int* count = reinterpret_cast<int*>(col_b + nt);
-  float* acc = reinterpret_cast<float*>(count + nt);
+  const SampleSums sm = sample_sums(tail, S);
   const float* cam = cam_in;
   Lights L;
   L.dl = dl_in;
@@ -462,7 +507,7 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
   L.n_dl = n_dl;
   L.n_pl = n_pl;
   if (smem_lights) {
-    float* sl = acc + 3 * P;
+    float* sl = sm.end;
     const int n_dlf = DLIGHT_FLOATS * n_dl, n_plf = PLIGHT_FLOATS * n_pl;
     for (int i = tid; i < CAM_FLOATS + n_dlf + n_plf; i += nt) {
       sl[i] = i < CAM_FLOATS ? cam_in[i]
@@ -476,79 +521,17 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
   if (SMEM_BOXES) cp_async_wait_all();
   __syncthreads();
 
-  const int p = tid / S, s = tid - p * S;
-  const int pix = blockIdx.x * P + p;
-  const bool live = pix < W * n_rows;
-  const int row = pix / W, col = pix - row * W;
   const MeshTracer<Boxes> tr{g, bx};
   const int n_lights = n_dl + n_pl;
-
-  // render_pixel's sample loop, its samples spread over the pixel's S
-  // threads: each round's colors are added by the pixel's first thread
-  // in sample order, from 0.0f, so the sum rounds as render_pixel's. The
-  // sums between rounds (acc) and the trace counts wait in shared memory,
-  // not in registers across the trace.
-  count[tid] = 0;
-  const int n_rounds = ROUNDS ? (n_samples + S - 1) / S : 1;
-  for (int round = 0; round < n_rounds; ++round) {
-    const int k0 = round * S;
-    if (k0 > 0) __syncthreads();  // the last round's colors are added
-    const int k = k0 + s;
-    if (live && k < n_samples) {
-      const Sample smp =
-          trace_sample<true>(tr, L, cam, col, row, k, W, H, N, bounce_limit,
-                             specular != 0, subtract != 0);
-      float pr, pg, pb;
-      sample_color(smp, sky, subtract != 0, pr, pg, pb);
-      col_r[tid] = pr;
-      col_g[tid] = pg;
-      col_b[tid] = pb;
-      count[tid] += smp.bounces + smp.hits * n_lights;
-    }
-    __syncthreads();
-    if (!live || s != 0) continue;
-    float r = 0.0f, gg = 0.0f, b = 0.0f;
-    if (k0 > 0) {
-      r = acc[p];
-      gg = acc[P + p];
-      b = acc[2 * P + p];
-    }
-    const int m = min(S, n_samples - k0);
-    for (int j = 0; j < m; ++j) {
-      r = r + col_r[tid + j];
-      gg = gg + col_g[tid + j];
-      b = b + col_b[tid + j];
-    }
-    if (k0 + S < n_samples) {
-      acc[p] = r;
-      acc[P + p] = gg;
-      acc[2 * P + p] = b;
-      continue;
-    }
-    int total = 0;
-    for (int j = 0; j < S; ++j) total += count[tid + j];
-    const int n_pixels = W * n_rows;
-    out_rgb[pix] = r * scale;
-    out_rgb[n_pixels + pix] = gg * scale;
-    out_rgb[2 * n_pixels + pix] = b * scale;
-    out_count[pix] = total;
-  }
-}
-
-__global__ void __launch_bounds__(NEAREST_BLOCK)
-cluster_nearest_kernel(const float* __restrict__ ox,
-                       const float* __restrict__ oy,
-                       const float* __restrict__ oz,
-                       const float* __restrict__ dx,
-                       const float* __restrict__ dy,
-                       const float* __restrict__ dz, int n, MeshGeom g,
-                       float* __restrict__ out_t, int* __restrict__ out_id) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Nearest b = nearest(g, TableBoxes{g.qbox, nullptr}, ox[i], oy[i],
-                            oz[i], dx[i], dy[i], dz[i]);
-  out_t[i] = b.t;
-  out_id[i] = b.id;
+  sample_threads<ROUNDS>(
+      sm, S, W, n_rows, n_samples, scale, out_rgb, out_count,
+      [&](int col, int row, int k, float& pr, float& pg, float& pb) {
+        const Sample smp =
+            trace_sample<true>(tr, L, cam, col, row, k, W, H, N,
+                               bounce_limit, specular != 0, subtract != 0);
+        sample_color(smp, sky, subtract != 0, pr, pg, pb);
+        return (unsigned)(smp.bounces + smp.hits * n_lights);
+      });
 }
 
 MeshGeom make_geom(const float* sph, const float* sph_mat,
@@ -577,15 +560,8 @@ MeshGeom make_geom(const float* sph, const float* sph_mat,
 
 
 // The launch shape of one band (see FUSED_BLOCK above).
-struct FusedShape {
-  int samples;   // S, sample threads of a pixel
-  int pixels;    // P, pixels of a block
-  int threads;   // P * S
-  int blocks;
-  size_t smem;   // dynamic shared memory of a block
+struct FusedShape : SampleShape {
   bool smem_boxes, smem_lights;
-  bool rounds;   // more than one round of S samples
-  int resident;  // blocks an SM holds (the occupancy calculator's)
 };
 
 using FusedKernel = decltype(&mesh_fused_kernel<true, true>);
@@ -601,55 +577,64 @@ FusedKernel fused_kernel(bool smem_boxes, bool rounds) {
 // shared memory; else the kernel reads them in place (SMEM_BOXES = false).
 cudaError_t fused_shape(int K, int n_dl, int n_pl, int W, int n_rows,
                         int n_samples, FusedShape& sh) {
-  const int rounds = (n_samples + MAX_ROUND - 1) / MAX_ROUND;
-  sh.samples = (n_samples + rounds - 1) / rounds;
-  sh.rounds = rounds > 1;
+  sample_rounds(n_samples, sh);
   const size_t light_bytes =
       sizeof(float) * ((size_t)CAM_FLOATS + (size_t)DLIGHT_FLOATS * n_dl +
                        (size_t)PLIGHT_FLOATS * n_pl);
   sh.smem_lights = light_bytes <= SMEM_LIGHT_BYTES;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const size_t box_bytes = staged_box_bytes(K);
-  sh.smem_boxes = true;
-  sh.pixels = sh.threads = sh.resident = 0;
-  sh.smem = 0;
-  int best_warps = 0;
-  while (true) {
+  for (sh.smem_boxes = true;; sh.smem_boxes = false) {
     const FusedKernel kernel = fused_kernel(sh.smem_boxes, sh.rounds);
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    int optin = 0;
+    cudaError_t err = allow_max_smem(kernel, optin);
+    if (err == cudaSuccess)
+      err = pick_block(kernel,
+                       (sh.smem_boxes ? staged_box_bytes(K) : 0) +
+                           (sh.smem_lights ? light_bytes : 0),
+                       true, optin, FUSED_BLOCK, FUSED_MAX_THREADS,
+                       (long long)W * n_rows, sh);
     if (err != cudaSuccess) return err;
-    for (int b = FUSED_BLOCK; b <= FUSED_MAX_THREADS; b *= 2) {
-      const int P = b / sh.samples, threads = P * sh.samples;
-      const size_t smem = (sh.smem_boxes ? box_bytes : 0) +
-                          (3 * sizeof(float) + sizeof(int)) * threads +
-                          3 * sizeof(float) * P +
-                          (sh.smem_lights ? light_bytes : 0);
-      if (smem > (size_t)optin) continue;
-      int resident = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
-                                                          threads, smem);
-      if (err != cudaSuccess) return err;
-      const int warps = resident * ((threads + 31) / 32);
-      if (warps > best_warps) {
-        best_warps = warps;
-        sh.pixels = P;
-        sh.threads = threads;
-        sh.smem = smem;
-        sh.resident = resident;
-      }
-    }
-    if (sh.resident > 0) break;
+    if (sh.resident > 0) return cudaSuccess;
     if (!sh.smem_boxes) return cudaErrorInvalidConfiguration;
-    sh.smem_boxes = false;
   }
-  sh.blocks = (int)(((long long)W * n_rows + sh.pixels - 1) / sh.pixels);
-  return cudaSuccess;
+}
+
+// The launch bounds of cluster_nearest_kernel hold a thread to
+// 65536 / (NEAREST_MAX_THREADS * NEAREST_MIN_BLOCKS) = 64 registers; its
+// block is the smallest of NEAREST_BLOCK, 2 * NEAREST_BLOCK, ...
+// NEAREST_MAX_THREADS that keeps the most warps resident on an SM
+// (common.cuh::pick_block). PERF.md records the layouts compared before
+// these were kept (a 40-register cap spills; the box table staged in
+// shared memory lost on bounce rays).
+constexpr int NEAREST_BLOCK = 128;
+constexpr int NEAREST_MAX_THREADS = 512;
+constexpr int NEAREST_MIN_BLOCKS = 2;
+
+// One thread per ray; the quarter boxes read in place, through L1.
+__global__ void __launch_bounds__(NEAREST_MAX_THREADS, NEAREST_MIN_BLOCKS)
+cluster_nearest_kernel(const float* __restrict__ ox,
+                       const float* __restrict__ oy,
+                       const float* __restrict__ oz,
+                       const float* __restrict__ dx,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ dz, int n, MeshGeom g,
+                       float* __restrict__ out_t, int* __restrict__ out_id) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Nearest best = nearest(g, IndexBoxes{g.qbox}, ox[i], oy[i], oz[i],
+                               dx[i], dy[i], dz[i]);
+  out_t[i] = best.t;
+  out_id[i] = best.id;
+}
+
+// The launch for n rays (one thread each).
+cudaError_t nearest_shape(int n, SampleShape& sh) {
+  sh.samples = 1;
+  sh.rounds = false;
+  const cudaError_t err =
+      pick_block(cluster_nearest_kernel, 0, false, 0, NEAREST_BLOCK,
+                 NEAREST_MAX_THREADS, n, sh);
+  if (err != cudaSuccess) return err;
+  return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -741,10 +726,34 @@ int ttrt_cluster_nearest(const float* ox, const float* oy, const float* oz,
   const MeshGeom g =
       make_geom(sph, nullptr, nullptr, sph_id, tri, nullptr, nullptr,
                 nullptr, tri_id, qbox, nullptr, kb_sph, kb_tri, mode == 0);
-  const int grid = (n + NEAREST_BLOCK - 1) / NEAREST_BLOCK;
-  cluster_nearest_kernel<<<grid, NEAREST_BLOCK, 0, (cudaStream_t)stream>>>(
+  SampleShape sh;
+  const cudaError_t err = nearest_shape(n, sh);
+  if (err != cudaSuccess) return (int)err;
+  cluster_nearest_kernel<<<sh.blocks, sh.threads, 0, (cudaStream_t)stream>>>(
       ox, oy, oz, dx, dy, dz, n, g, out_t, out_id);
   return (int)cudaGetLastError();
+}
+
+// The launch shape ttrt_cluster_nearest takes for n rays, into out[6]:
+// threads of a block, blocks, blocks an SM holds, SMs, and the kernel's
+// registers and local (spill) bytes of a thread. Returns a CUDA error code
+// (0 on success).
+int ttrt_cluster_nearest_layout(int n, int* out) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  SampleShape sh;
+  cudaError_t err = nearest_shape(n, sh);
+  int dev = 0, sms = 0;
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, cluster_nearest_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[6] = {sh.threads, sh.blocks, sh.resident, sms,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // extern "C"

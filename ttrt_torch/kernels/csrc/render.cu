@@ -16,28 +16,35 @@
 // ttrt_torch/kernels/render.py::render_band_plain, render_frame_pixel_rate_plain
 // and sky_weights_plain, which mirror this math op for op.
 //
-// Design: one thread per pixel of the band. Each thread loops over its AA
-// samples k = 0..n_samples-1 in order (the sample index and the row carry
-// the band's offsets, cam[16] and cam[15], and the jitter uses the frame's
-// N) and, per sample, over the bounces with a real loop that exits when the
-// ray dies (a dead ray changes no accumulator, so the exit is exact). It
-// sums the per-sample normalized colors and multiplies by `scale`: 1/N
-// gives the JAX package's reshape(N,H,W).sum(0) * (1/N)
+// Design: one thread per (pixel, AA sample) of the band. A pixel's
+// n_samples samples run on S neighbouring threads of one block, all of
+// them up to 32, else in rounds of at most 32 (common.cuh::sample_threads);
+// each thread runs trace_sample<true> and sample_color for its sample k
+// (the sample index and the row carry the band's offsets, cam[16] and
+// cam[15], and the jitter uses the frame's N), its bounce loop a real loop
+// that exits when the ray dies (a dead ray changes no accumulator, so the
+// exit is exact). The pixel's first thread adds the samples' colors in
+// sample order from 0.0f and multiplies by `scale`, the operations of
+// the plain version's in-order sum (render_band_plain): 1/N gives
+// the JAX package's reshape(N,H,W).sum(0) * (1/N)
 // (render_pallas.py:1350-1352) and its acc layout's in-order sum times 1/N
-// (:1097-1100), 1 the band's sample sum (:1398-1400). Outputs: (3, n_rows,
-// W) float32 and a per-pixel int32 count (bounces + hits * n_lights,
-// render_pallas.py:1050-1057, or the 16|16 sums), 2.2 MB a frame at 480x280
-// against the 27 MB of per-ray outputs the TPU kernel writes;
-// sky_weight_kernel writes the (N, H, W) float32 sky weights, sample-major
-// as the JAX rays. The scene is a packed float32 buffer (the PackedScene
-// layout: cam 17, spheres 9 each, plane 16, directional lights 6 each, point
-// lights 7 each) of any size, which each block copies into shared memory
-// once when it fits in 48 KB and otherwise reads in place; an image sky's
-// texel table stays in device memory (common.cuh::Sky). None of the TPU
-// kernel's shape is kept: no unrolled bounce chain, no (16, 128) tiles, no
-// SMEM scalar tables, no deferred sky gather, and no kernel split for the
-// decoy sky (the Mosaic scheduling cliff it insured against does not exist
-// here).
+// (:1097-1100), 1 the band's sample sum (:1398-1400). The counts add as
+// integers: each sample's bounces + hits * n_lights
+// (render_pallas.py:1050-1057), or for the pixel rate its bounces |
+// hits << 16, whose sums are the 16|16 sums (n_samples * bounce_limit <=
+// 0xFFFF, so no field carries). Outputs: (3, n_rows, W) float32 and a
+// per-pixel int32 count, 2.2 MB a frame at 480x280 against the 27 MB of
+// per-ray outputs the TPU kernel writes. sky_weight_kernel keeps one
+// thread per pixel and writes the (N, H, W) float32 sky weights,
+// sample-major as the JAX rays. The scene is a packed float32 buffer (the
+// PackedScene layout: cam 17, spheres 9 each, plane 16, directional lights
+// 6 each, point lights 7 each) of any size, which each block copies into
+// shared memory once when it fits in 48 KB and otherwise reads in place;
+// an image sky's texel table stays in device memory (common.cuh::Sky).
+// None of the TPU kernel's shape is kept: no unrolled bounce chain, no
+// (16, 128) tiles, no SMEM scalar tables, no deferred sky gather, and no
+// kernel split for the decoy sky (the Mosaic scheduling cliff it insured
+// against does not exist here).
 //
 // Floating point follows the JAX oracle: build with --fmad=false and
 // without --use_fast_math, so every product and sum rounds as written and
@@ -55,22 +62,37 @@
 // t = 1.5 makes 5,249,350 traces, each at least a shadow trace's 128 FP32
 // operations, 0.0100 ms at the FP32 peak; its bytes (the scene, a
 // 1,572,864-byte texel table at dim 256, 2.2 MB of output) take about a
-// tenth of that. Measured on an NVIDIA H100 80GB HBM3 at 700 W: about
-// 0.23 ms for the kernel alone (PERF.md), so latency and warp divergence
-// (rays of one warp die at different bounces) bound it, and the frame is
-// bound by the host (the ANSI encode, the 3,360,286-byte copy to the host
-// and write(2)).
+// tenth of that. What held the one-thread-a-pixel form at 22x that bound
+// (PERF.md): its 1,050 blocks of 128 were all resident at once, less than
+// one wave, so the launch lasted as long as its slowest pixel's chain of
+// 10 samples x up to 10 bounces, with nothing to start as warps finished.
+// Spread over threads, the frame is 5,376 blocks of 250 threads (25
+// pixels x 10 samples), about ten waves that the block scheduler
+// balances. What remains is latency and
+// warp divergence (rays of one warp die at different bounces); the frame
+// is bound by the host (the ANSI encode, the 3,360,286-byte copy to the
+// host and write(2)).
 
 #include "common.cuh"
 
 namespace {
 
+// sky_weight_kernel's block.
 constexpr int BLOCK = 128;
-// A scene of up to this many bytes goes into dynamic shared memory (the
-// launch needs no opt-in attribute below 48 KB): 1,357 spheres with the
-// demo's two lights. A larger scene is read in place from the global
-// buffer (SMEM = false), through L1 and L2: a block holding a larger table
-// would leave room for only a few blocks on an SM.
+// render_kernel's launch: the smallest of RENDER_BLOCK, 2 * RENDER_BLOCK,
+// ... RENDER_MAX_THREADS threads (whole pixels of S sample threads) that
+// keeps the most warps resident on an SM (common.cuh::pick_block), with
+// launch bounds that hold a thread to
+// 65536 / (RENDER_MAX_THREADS * RENDER_MIN_BLOCKS) = 64 registers. PERF.md
+// records the layouts compared before these were kept: 120-thread blocks
+// were 4% slower than 250-thread ones, 42- and 32-register caps 5-7%.
+constexpr int RENDER_BLOCK = 256;
+constexpr int RENDER_MAX_THREADS = 512;
+constexpr int RENDER_MIN_BLOCKS = 2;
+// A scene of up to this many bytes goes into dynamic shared memory:
+// 1,357 spheres with the demo's two lights. A larger scene is read in
+// place from the global buffer (SMEM = false), through L1 and L2: a block
+// holding a larger table would leave room for only a few blocks on an SM.
 constexpr size_t SMEM_SCENE_BYTES = 48 * 1024;
 
 size_t scene_bytes(int n_sph, int n_dl, int n_pl) {
@@ -108,40 +130,39 @@ __device__ __forceinline__ const float* load_scene(
 }
 
 // Rows [cam[15], cam[15] + n_rows) and samples [cam[16], cam[16] +
-// n_samples) of the W x H x N frame: one thread per pixel of the band
-// writes its sample sum times `scale` (1/N for the average, 1 for the
-// sum). PIXEL_RATE: out_count holds the pixel's 16|16 sums (the acc
-// layout) instead of its trace count.
-template <bool PIXEL_RATE, bool SMEM>
-__global__ void __launch_bounds__(BLOCK)
+// n_samples) of the W x H x N frame, a pixel's samples on S threads:
+// writes each pixel's sample sum times `scale` (1/N for the average, 1 for
+// the sum) and its count. PIXEL_RATE: out_count holds the pixel's 16|16
+// sums (the acc layout) instead of its trace count. Shared memory: the
+// sample sums (common.cuh::SampleSums), then with SMEM the scene.
+// ROUNDS = false is the one-round launch (S == n_samples).
+template <bool PIXEL_RATE, bool SMEM, bool ROUNDS>
+__global__ void __launch_bounds__(RENDER_MAX_THREADS, RENDER_MIN_BLOCKS)
 render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
               int n_pl, int W, int H, int N, int n_rows, int n_samples,
-              int bounce_limit, int specular, int subtract, Sky sky,
+              int S, int bounce_limit, int specular, int subtract, Sky sky,
               float scale, float* __restrict__ out_rgb,
               int* __restrict__ out_count) {
   extern __shared__ float sbuf[];
+  const SampleSums sm = sample_sums(sbuf, S);
   DemoTracer tr;
   Lights L;
   const float* cam =
-      load_scene<SMEM>(scene_buf, n_sph, n_dl, n_pl, sbuf, tr, L);
-
-  const int n_pixels = W * n_rows;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= n_pixels) return;
-
-  float acc_r, acc_g, acc_b;
-  int bounces, hits;
-  render_pixel(tr, L, cam, pix % W, pix / W, W, H, N, n_samples,
-               bounce_limit, specular != 0, subtract != 0, sky, acc_r, acc_g,
-               acc_b, bounces, hits);
-  out_rgb[pix] = acc_r * scale;
-  out_rgb[n_pixels + pix] = acc_g * scale;
-  out_rgb[2 * n_pixels + pix] = acc_b * scale;
-  // hits may reach 0xFFFF (check_pixel_rate): shift it unsigned, so bit 31
-  // is set without a signed overflow
-  out_count[pix] =
-      PIXEL_RATE ? (int)((unsigned)bounces | ((unsigned)hits << 16))
-                 : bounces + hits * (n_dl + n_pl);
+      load_scene<SMEM>(scene_buf, n_sph, n_dl, n_pl, sm.end, tr, L);
+  const int n_lights = n_dl + n_pl;
+  sample_threads<ROUNDS>(
+      sm, S, W, n_rows, n_samples, scale, out_rgb, out_count,
+      [&](int col, int row, int k, float& pr, float& pg, float& pb) {
+        const Sample smp =
+            trace_sample<true>(tr, L, cam, col, row, k, W, H, N,
+                               bounce_limit, specular != 0, subtract != 0);
+        sample_color(smp, sky, subtract != 0, pr, pg, pb);
+        // hits may reach 0xFFFF (check_pixel_rate): shift it unsigned, so
+        // bit 31 is set without a signed overflow
+        return PIXEL_RATE
+                   ? (unsigned)smp.bounces | ((unsigned)smp.hits << 16)
+                   : (unsigned)(smp.bounces + smp.hits * n_lights);
+      });
 }
 
 // The sky weight of every ray, out_w[k * H * W + pixel]: the bounce chain
@@ -173,6 +194,42 @@ bool scene_ok(int n_sph, int n_dl, int n_pl, int W, int H, int N) {
          scene_bytes(n_sph, n_dl, n_pl) <= 0x7FFFFFFFu;
 }
 
+struct RenderShape : SampleShape {
+  bool smem_scene;
+};
+
+using RenderKernel = decltype(&render_kernel<false, true, false>);
+
+RenderKernel render_kernel_for(bool pixel_rate, bool smem, bool rounds) {
+  if (pixel_rate)
+    return smem ? (rounds ? render_kernel<true, true, true>
+                          : render_kernel<true, true, false>)
+                : (rounds ? render_kernel<true, false, true>
+                          : render_kernel<true, false, false>);
+  return smem ? (rounds ? render_kernel<false, true, true>
+                        : render_kernel<false, true, false>)
+              : (rounds ? render_kernel<false, false, true>
+                        : render_kernel<false, false, false>);
+}
+
+// The launch of a band of n_rows x W pixels and n_samples samples.
+cudaError_t render_shape(int n_sph, int n_dl, int n_pl, int W, int n_rows,
+                         int n_samples, bool pixel_rate, RenderShape& sh) {
+  sample_rounds(n_samples, sh);
+  const size_t bytes = scene_bytes(n_sph, n_dl, n_pl);
+  sh.smem_scene = bytes <= SMEM_SCENE_BYTES;
+  const RenderKernel kernel =
+      render_kernel_for(pixel_rate, sh.smem_scene, sh.rounds);
+  int optin = 0;
+  cudaError_t err = allow_max_smem(kernel, optin);
+  if (err == cudaSuccess)
+    err = pick_block(kernel, sh.smem_scene ? bytes : 0, true, optin,
+                     RENDER_BLOCK, RENDER_MAX_THREADS, (long long)W * n_rows,
+                     sh);
+  if (err != cudaSuccess) return err;
+  return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
 extern "C" {
@@ -196,17 +253,45 @@ int ttrt_render(const float* scene_buf, int n_sph, int n_dl, int n_pl, int W,
       (pixel_rate && (long long)n_samples * bounce_limit > 0xFFFF))
     return (int)cudaErrorInvalidValue;
   const Sky sky{sky_kind, sky_dim, bilinear != 0, texels};
-  const size_t bytes = scene_bytes(n_sph, n_dl, n_pl);
-  const bool smem = bytes <= SMEM_SCENE_BYTES;
-  const auto kernel = pixel_rate ? (smem ? render_kernel<true, true>
-                                         : render_kernel<true, false>)
-                                 : (smem ? render_kernel<false, true>
-                                         : render_kernel<false, false>);
-  const int grid = (W * n_rows + BLOCK - 1) / BLOCK;
-  kernel<<<grid, BLOCK, smem ? bytes : 0, (cudaStream_t)stream>>>(
-      scene_buf, n_sph, n_dl, n_pl, W, H, N, n_rows, n_samples, bounce_limit,
-      specular, subtract, sky, scale, out_rgb, out_count);
+  RenderShape sh;
+  const cudaError_t err = render_shape(n_sph, n_dl, n_pl, W, n_rows,
+                                       n_samples, pixel_rate != 0, sh);
+  if (err != cudaSuccess) return (int)err;
+  render_kernel_for(pixel_rate != 0, sh.smem_scene, sh.rounds)<<<
+      sh.blocks, sh.threads, sh.smem, (cudaStream_t)stream>>>(
+      scene_buf, n_sph, n_dl, n_pl, W, H, N, n_rows, n_samples, sh.samples,
+      bounce_limit, specular, subtract, sky, scale, out_rgb, out_count);
   return (int)cudaGetLastError();
+}
+
+// The launch shape ttrt_render takes for a band of these sizes, into
+// out[10]: sample threads of a pixel, pixels of a block, threads of a
+// block, blocks, dynamic shared bytes of a block, scene staged (1) or read
+// in place (0), blocks an SM holds, SMs, and the chosen instantiation's
+// registers and local (spill) bytes of a thread. Returns a CUDA error code
+// (0 on success).
+int ttrt_render_layout(int n_sph, int n_dl, int n_pl, int W, int n_rows,
+                       int n_samples, int pixel_rate, int* out) {
+  if (n_sph < 0 || n_dl < 0 || n_pl < 0 || W < 1 || n_rows < 1 ||
+      n_samples < 1)
+    return (int)cudaErrorInvalidValue;
+  RenderShape sh;
+  cudaError_t err = render_shape(n_sph, n_dl, n_pl, W, n_rows, n_samples,
+                                 pixel_rate != 0, sh);
+  int dev = 0, sms = 0;
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(
+        &attr, render_kernel_for(pixel_rate != 0, sh.smem_scene, sh.rounds));
+  if (err != cudaSuccess) return (int)err;
+  const int vals[10] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
+                        (int)sh.smem, sh.smem_scene ? 1 : 0, sh.resident,
+                        sms, attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 // Launch sky_weight_kernel on `stream`; returns cudaGetLastError(). The

@@ -73,9 +73,10 @@ cluster_nearest_plain.launches = 0
 def cluster_nearest_cuda(pack: Union[ClusterPack, KernelTables], o: Vec3,
                          d: Vec3, *, mode: str = "cull") -> NearestHit:
     """Launch the CUDA kernel (csrc/mesh.cu, ``ttrt_cluster_nearest``): one
-    thread per ray, the quarter AABBs slab-tested ahead of their 32
-    objects (``mode="cull"``) or every object tested (``"dense"``). The
-    kernel is float32: other ray dtypes are refused, not cast."""
+    thread per ray, a subcluster's four quarter AABBs slab-tested ahead of
+    their 32 objects each (``mode="cull"``) or every object tested
+    (``"dense"``); ``nearest_layout`` gives the launch shape. The kernel
+    is float32: other ray dtypes are refused, not cast."""
     from ttrt_torch.kernels import build
 
     if mode not in MODES:
@@ -114,3 +115,27 @@ def cluster_nearest(pack: Union[ClusterPack, KernelTables], o: Vec3,
     if o.x.device.type == "cpu":
         return cluster_nearest_plain(pack, o, d)
     return cluster_nearest_cuda(pack, o, d)
+
+
+NEAREST_LAYOUT_KEYS = ("threads_per_block", "blocks", "blocks_per_sm", "sms",
+                       "registers", "local_bytes")
+
+
+def nearest_layout(n: int) -> dict:
+    """The launch shape ``cluster_nearest_cuda`` takes for ``n`` rays
+    (``ttrt_cluster_nearest_layout``): threads of a block, the blocks, the
+    blocks an SM holds and the SMs (hence ``waves``), and the kernel's
+    registers and local (spill) bytes a thread. Needs a CUDA device."""
+    import ctypes
+
+    from ttrt_torch.kernels import build
+
+    out = (ctypes.c_int * len(NEAREST_LAYOUT_KEYS))()
+    rc = build.load().ttrt_cluster_nearest_layout(n, out)
+    if rc != 0:
+        raise RuntimeError(
+            f"cluster_nearest kernel layout failed: CUDA error {rc}")
+    shape = dict(zip(NEAREST_LAYOUT_KEYS, out))
+    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
+                                        * shape["sms"])
+    return shape

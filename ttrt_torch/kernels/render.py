@@ -976,9 +976,10 @@ def render_band_cuda(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
                      count_rays: bool = True
                      ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Render a band of the frame (``Band``) with the CUDA kernel
-    (csrc/render.cu): one thread per pixel of the band writes its sample
-    average or sum and its trace count. Raises on anything the kernel does
-    not take, CPU tensors included."""
+    (csrc/render.cu): one thread per (pixel, sample) of the band, a
+    pixel's first thread writing its sample average or sum and its trace
+    count (``render_layout`` gives the launch shape). Raises on anything
+    the kernel does not take, CPU tensors included."""
     check_supported(scene, cfg)
     band = Band.of(cfg, row_offset, n_rows, sample_offset, n_samples, reduce)
     out, counts = _launch_render(scene, cfg, "render_band_cuda", False, band)
@@ -994,10 +995,10 @@ def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
                       count_rays: bool = True
                       ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Render one frame with the CUDA kernel (csrc/render.cu), the
-    whole-frame band of ``render_band_cuda``: one thread per pixel writes
-    the (3, H, W) sample average and the pixel's trace count. Raises on
-    anything the kernel does not take, CPU tensors included; the count is
-    summed only when ``count_rays`` is set."""
+    whole-frame band of ``render_band_cuda``: the (3, H, W) sample average
+    and each pixel's trace count. Raises on anything the kernel does not
+    take, CPU tensors included; the count is summed only when
+    ``count_rays`` is set."""
     check_supported(scene, cfg)
     out, counts = _launch_render(scene, cfg, "render_frame_cuda", False)
     render_frame_cuda.launches += 1
@@ -1023,6 +1024,42 @@ def render_frame_pixel_rate_cuda(scene: Scene, cfg: RenderConfig
 
 
 render_frame_pixel_rate_cuda.launches = 0
+
+
+RENDER_LAYOUT_KEYS = ("sample_threads", "pixels_per_block",
+                      "threads_per_block", "blocks", "smem_bytes",
+                      "scene_staged", "blocks_per_sm", "sms", "registers",
+                      "local_bytes")
+
+
+def render_layout(scene: Scene, cfg: RenderConfig,
+                  n_rows: Optional[int] = None,
+                  n_samples: Optional[int] = None,
+                  pixel_rate: bool = False) -> dict:
+    """The launch shape ``render_band_cuda`` (or with ``pixel_rate`` the
+    pixel-rate frame) takes for a band of ``scene``
+    (``ttrt_render_layout``): the sample threads of a pixel, pixels,
+    threads and dynamic shared bytes of a block, the blocks, whether the
+    scene is staged in shared memory, the blocks an SM holds and the SMs
+    (hence ``waves``), and the kernel's registers and local (spill) bytes
+    a thread. Needs a CUDA device."""
+    import ctypes
+
+    from ttrt_torch.kernels import build
+
+    out = (ctypes.c_int * len(RENDER_LAYOUT_KEYS))()
+    rc = build.load().ttrt_render_layout(
+        scene.spheres.count, scene.directional_lights.count,
+        scene.point_lights.count, cfg.width,
+        cfg.height if n_rows is None else n_rows,
+        cfg.rays_per_pixel if n_samples is None else n_samples,
+        int(pixel_rate), out)
+    if rc != 0:
+        raise RuntimeError(f"render kernel layout failed: CUDA error {rc}")
+    shape = dict(zip(RENDER_LAYOUT_KEYS, out))
+    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
+                                        * shape["sms"])
+    return shape
 
 
 def sky_weights_cuda(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
