@@ -86,13 +86,18 @@ The Monte-Carlo path tracer (--pathtrace), through the path-tracing kernel
       3.3, and one frame each with 'uv_checker' and with --bilinear. Bar:
       phase 2's; max |d|, the differing pixels and both sides' work
       (nearest-hit traces, hits, unblocked shadow rays) are printed (the
-      differences are expected to be 0).
+      differences are expected to be 0). Then PATHTRACE_CASES at reduced
+      sizes, each in both reduce modes, bit for bit with equal work: an
+      odd frame, 33 samples (two rounds of sample threads), a
+      1400-sphere scene read in place, and both: with the full frames,
+      every instantiation the launch can choose.
   P2. the kernel vs JAX's kernel stored in
       tests/data/torch_port_golden_pathtrace.npz (PATHTRACE_BAR).
   P3. timing: the wrapper (CUDA events, median of 20), the kernel alone
       (torch.profiler), the plain version; traces a frame and Mray/s from
       the plain version's count; the kernel's bound from the FP32
-      operations its work needs (the PT_* counts).
+      operations its work needs (the PT_* counts); its launch shape
+      (pathtrace_layout) and ptxas lines.
   P4. the main path: 30 frames of run_animation(..., pathtrace=True), the
       launch counts set to 0 before and read after, then one frame of the
       eager estimator on the card, whose image mean must be within 0.01 of
@@ -123,7 +128,9 @@ csrc/mesh.cu):
       pixel-rate kernels have no caller on these paths: their counts are
       read too and must stay 0, and the kernels line reports them so.
   S5. the sky-weight kernel (sky_weights) vs its plain version, bit for
-      bit; its time and bound.
+      bit; its time and bound, its launch shape (sky_weights_layout) and
+      ptxas lines; then SKY_CASES, bit for bit: a ray count no multiple
+      of a block, and a 1400-sphere scene read in place.
   S6. the pixel-rate kernel (render_frame_pixel_rate) vs its plain version
       and vs render_frame_cuda, bit for bit; its time and bound.
 
@@ -337,6 +344,54 @@ RENDER_CASES = (
                1400, {"width": 16, "height": 8, "rays_per_pixel": 33,
                       "bounce_limit": 3}, {}, pixel_rate=True,
                staged=False, rounds=True),
+)
+
+
+class PathtraceCase(NamedTuple):
+    """A frame of the demo scene (t = 1.5, the 'colors' sky, the demo's
+    area light, frame_seed(0, 1.5)) for the path-tracing kernel against
+    its plain version in both reduce modes: ``config`` the RenderConfig's
+    fields, ``spheres`` the spheres of a crowded scene (``crowd``; 0
+    keeps the demo's six), ``staged`` whether the kernel stages the scene
+    in shared memory, ``rounds`` whether a pixel's samples take more than
+    one round of its sample threads: with the full frames of phases P1
+    and M2, the eight instantiations of pathtrace_kernel."""
+
+    key: str
+    label: str
+    spheres: int
+    config: dict
+    staged: bool = True
+    rounds: bool = False
+
+
+# The path-tracing kernel's launch shapes that the full frames of phases
+# P1 and M2 do not take, at reduced sizes (phase P1 and
+# tests/test_torch_cuda_pathtrace.py). 1400 spheres and one area light
+# make a 50,564-byte scene, past the 48 KB the kernel stages.
+PATHTRACE_CASES = (
+    PathtraceCase("odd", "97x41, 3 spp: neither side a multiple of a block",
+                  0, {"width": 97, "height": 41, "rays_per_pixel": 3}),
+    PathtraceCase("rounds", "33 spp: rounds of 17 and 16 sample threads", 0,
+                  {"width": 29, "height": 13, "rays_per_pixel": 33},
+                  rounds=True),
+    PathtraceCase("in_place", "1400 spheres: the scene read in place", 1400,
+                  {"width": 64, "height": 32, "rays_per_pixel": 2,
+                   "bounce_limit": 3}, staged=False),
+    PathtraceCase("in_place_rounds", "1400 spheres at 33 spp", 1400,
+                  {"width": 16, "height": 8, "rays_per_pixel": 33,
+                   "bounce_limit": 3}, staged=False, rounds=True),
+)
+
+# The sky-weight kernel's launch shapes that phase S5's full frame does
+# not take: a ray count no multiple of a block, and the scene read in
+# place (``PathtraceCase``'s fields; no rounds: one thread a ray).
+SKY_CASES = (
+    PathtraceCase("odd", "97x41, 3 spp: the rays no multiple of a block", 0,
+                  {"width": 97, "height": 41, "rays_per_pixel": 3}),
+    PathtraceCase("in_place", "1400 spheres: the scene read in place", 1400,
+                  {"width": 64, "height": 32, "rays_per_pixel": 2,
+                   "bounce_limit": 3}, staged=False),
 )
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
@@ -674,6 +729,96 @@ def render_case(dev, case: RenderCase) -> dict:
     stats["layout"] = {k: shape[k] for k in (
         "sample_threads", "threads_per_block", "blocks", "smem_bytes",
         "scene_staged")}
+    return stats
+
+
+def _case_scene(dev, case: PathtraceCase):
+    """``case``'s RenderConfig and its demo scene at t = 1.5."""
+    import torch
+
+    from ttrt_torch import assets
+    from ttrt_torch.config import RenderConfig
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.scene import demo_scene
+
+    cfg = RenderConfig(**case.config)
+    scene = demo_scene(assets.load_skybox("colors", device=dev), cfg.width,
+                       cfg.height, dtype=torch.float32, device=dev)
+    scene = scene.with_camera_frame(
+        orbit_camera_frame(1.5, dtype=torch.float32, device=dev))
+    if case.spheres:
+        scene = crowd(scene, case.spheres, 1, 1, seed=4)
+    return cfg, scene
+
+
+def pathtrace_case(dev, case: PathtraceCase) -> dict:
+    """Path-trace ``case`` with the kernel and its plain version on
+    ``dev``, the clipped mean and the sum: frames bit for bit equal, equal
+    work, the kernel launched once each, its scene staged and its samples
+    in rounds as ``case`` says. Returns each mode's stats and the launch
+    shape (``pathtrace_layout``)."""
+    import torch
+
+    from ttrt_torch.kernels import pathtrace
+    from ttrt_torch.render import pathtrace as estimator
+
+    cfg, scene = _case_scene(dev, case)
+    lights = estimator.default_area_lights(cfg, dev)
+    seed = pathtrace.frame_seed(0, 1.5)
+    cuda = pathtrace.pathtrace_frame_cuda
+    out = {}
+    for reduce in pathtrace.REDUCE:
+        before = cuda.launches
+        fb_k, work_k = cuda(scene, lights, cfg, seed, reduce=reduce)
+        fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg,
+                                                       seed, reduce=reduce)
+        torch.cuda.synchronize()
+        assert cuda.launches == before + 1, (case.key, cuda.launches)
+        k = fb_k.to_array().cpu().numpy()
+        assert k.shape == (cfg.height, cfg.width, 3) and np.isfinite(k).all()
+        d = np.abs(fb_p.to_array().cpu().numpy().astype(np.float64) - k)
+        stats = {"max_abs": float(d.max()),
+                 "diff_px": int((d > 0).any(axis=-1).sum()),
+                 "work": [int(v) for v in work_k],
+                 "work_ref": [int(v) for v in work_p]}
+        assert (stats["max_abs"] == 0.0 and stats["diff_px"] == 0
+                and stats["work"] == stats["work_ref"]), (case.key, reduce,
+                                                          stats)
+        out[reduce] = stats
+        shape = pathtrace.pathtrace_layout(scene, lights, cfg, reduce)
+        assert shape["scene_staged"] == int(case.staged), (case.key, shape)
+        assert (shape["sample_threads"] < cfg.rays_per_pixel) == case.rounds
+    out["layout"] = {k: shape[k] for k in (
+        "sample_threads", "threads_per_block", "blocks", "smem_bytes",
+        "scene_staged")}
+    return out
+
+
+def sky_case(dev, case: PathtraceCase) -> dict:
+    """The sky weights of ``case`` with the kernel and its plain version on
+    ``dev``: bit for bit equal, the kernel launched once, its scene staged
+    as ``case`` says. Returns the stats and the launch shape
+    (``sky_weights_layout``)."""
+    import torch
+
+    from ttrt_torch.kernels import render
+
+    cfg, scene = _case_scene(dev, case)
+    cuda = render.sky_weights_cuda
+    before = cuda.launches
+    w_k = cuda(scene, cfg)
+    w_p = render.sky_weights_plain(scene, cfg)
+    torch.cuda.synchronize()
+    assert cuda.launches == before + 1, (case.key, cuda.launches)
+    assert w_k.shape == (cfg.rays_per_pixel, cfg.height, cfg.width)
+    assert bool(torch.isfinite(w_k).all())
+    stats = {"max_abs": float((w_k - w_p).abs().max()),
+             "diff": int((w_k != w_p).sum()), "rays": w_k.numel()}
+    assert stats["diff"] == 0, (case.key, stats)
+    shape = render.sky_weights_layout(scene, cfg)
+    assert shape["scene_staged"] == int(case.staged), (case.key, shape)
+    stats["layout"] = {k: shape[k] for k in (
+        "threads_per_block", "blocks", "smem_bytes", "scene_staged")}
     return stats
 
 
@@ -1101,6 +1246,20 @@ def _ptxas_lines(report: str, name: str = "mesh_fused_kernel") -> list:
     return out
 
 
+def ptxas_spills(report: str, name: str) -> dict:
+    """{mangled entry name: spill store bytes} of the entry functions of
+    an nvcc -Xptxas -v report whose name holds ``name``."""
+    out, entry = {}, None
+    for line in _ptxas_lines(report, name):
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+    return out
+
+
 def on_streams(streams, calls) -> list:
     """Run ``calls[i]()`` on ``streams[i]``, each after the current
     stream's work so far, and make the current stream wait for all of
@@ -1282,8 +1441,8 @@ def main() -> int:
     }]
     mesh_kernels, fused_work = mesh_phases(card, dev, full, report)
     kernels += mesh_kernels
-    kernels.append(pathtrace_phases(card, dev, full))
-    kernels += sky_phases(card, dev, full, fused_work)
+    kernels.append(pathtrace_phases(card, dev, full, report))
+    kernels += sky_phases(card, dev, full, fused_work, report)
     kernels += mesh_axis_phases(card, dev, full)
 
     print(json.dumps({"kernels": kernels}))
@@ -1565,9 +1724,9 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     }], fused_work
 
 
-def pathtrace_phases(card: str, dev, full) -> dict:
+def pathtrace_phases(card: str, dev, full, report: str) -> dict:
     """Phases P1-P4; returns the path-tracing kernel's entry of the
-    kernels line."""
+    kernels line. ``report`` is phase 1's nvcc report."""
     import torch
 
     from ttrt_torch import app, assets
@@ -1619,6 +1778,10 @@ def pathtrace_phases(card: str, dev, full) -> dict:
         pt_err = max(pt_err, stats["max_abs"])
         print(f"phase P1: {sky} t={t} seed={seed} {flags or ''} "
               f"{json.dumps(stats)}")
+    # the launch shapes the full frames do not take, at reduced sizes
+    for case in PATHTRACE_CASES:
+        stats = pathtrace_case(dev, case)
+        print(f"phase P1: {case.label}: {json.dumps(stats)}")
 
     # -- phase P2: the kernel vs the stored JAX kernel -----------------------
     for stats in check_pathtrace_golden(pt_cuda, dev):
@@ -1650,6 +1813,10 @@ def pathtrace_phases(card: str, dev, full) -> dict:
           f"events, median of 20), kernel {pt_kernel_ms:.4f} ms = "
           f"{traces / pt_kernel_ms / 1e3:.1f} Mray/s ({pt_how}), plain version {pt_plain_ms:.3f} ms (median of 3); bound "
           f"{pt_bound[0]:.4f} ms by {pt_bound[1]}")
+    print(f"phase P3: path-tracing kernel's launch: "
+          f"{json.dumps(pathtrace.pathtrace_layout(scene, lights, full))}")
+    for line in _ptxas_lines(report, "pathtrace_kernel"):
+        print(f"phase P3: ptxas: {line}")
 
     # -- phase P4: the --pathtrace main path ----------------------------------
     sink = io.BytesIO()
@@ -1722,11 +1889,12 @@ def pathtrace_phases(card: str, dev, full) -> dict:
     }
 
 
-def sky_phases(card: str, dev, full, fused_work: dict) -> list:
+def sky_phases(card: str, dev, full, fused_work: dict, report: str) -> list:
     """Phases S1-S6; returns the entries of the kernels line of the
     textured demo and fused kernels, the sky-weight kernel and the
     pixel-rate kernel. ``fused_work`` is phase D's fused frame, whose
-    geometry phase S2 renders again under the image sky."""
+    geometry phase S2 renders again under the image sky; ``report`` is
+    phase 1's nvcc report."""
     import torch
 
     from ttrt_torch import app, assets
@@ -1928,6 +2096,14 @@ def sky_phases(card: str, dev, full, fused_work: dict) -> list:
           f"ms ({sw_how}), plain version {sw_plain_ms:.3f} ms (median of "
           f"5); bound {sw_bound[0]:.4f} ms by {sw_bound[1]}; launches "
           f"(kernel, plain) in this phase's call {sw_launches}")
+    print(f"phase S5: sky-weight kernel's launch: "
+          f"{json.dumps(render.sky_weights_layout(scene, full))}")
+    for line in _ptxas_lines(report, "sky_weight_kernel"):
+        print(f"phase S5: ptxas: {line}")
+    for case in SKY_CASES:
+        stats = sky_case(dev, case)
+        sw_err = max(sw_err, stats["max_abs"])
+        print(f"phase S5: {case.label}: {json.dumps(stats)}")
 
     # -- phase S6: the pixel-rate kernel -------------------------------------
     pr_cuda = render.render_frame_pixel_rate_cuda

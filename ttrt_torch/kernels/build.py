@@ -77,11 +77,13 @@ def _run(procs: list) -> str:
 
 def build() -> tuple[Path, str]:
     """Compile the kernel library if it is not built yet. Returns its path
-    and the compiler's report (registers, spills; empty when the library
-    was already built). Raises if nvcc is missing or fails."""
+    and the compiler's report (registers, spills), which is kept beside
+    the library (``<library>.ptxas``; empty if that file is gone). Raises
+    if nvcc is missing or fails."""
     out = library_path()
+    saved = out.with_suffix(".ptxas")
     if out.is_file():
-        return out, ""
+        return out, saved.read_text() if saved.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
@@ -91,6 +93,9 @@ def build() -> tuple[Path, str]:
         lib = os.path.join(tmp, out.name)
         report += _run([_spawn([nvcc(), *ARCH, "-shared", "-o", lib,
                                 *objs])])
+        log = os.path.join(tmp, saved.name)
+        Path(log).write_text(report)
+        os.replace(log, saved)
         os.replace(lib, out)  # atomic: concurrent builders see whole files
     return out, report
 
@@ -112,6 +117,9 @@ def load() -> ctypes.CDLL:
     # scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w, stream
     lib.ttrt_sky_weights.restype = ctypes.c_int
     lib.ttrt_sky_weights.argtypes = [p] + [i] * 7 + [p, p]
+    # n_sph, n_dl, n_pl, W, H, N, out[10]
+    lib.ttrt_sky_weights_layout.restype = ctypes.c_int
+    lib.ttrt_sky_weights_layout.argtypes = [i] * 6 + [p]
     # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, qbox, order,
     # kb_sph, kb_tri, W, H, N, n_rows, n_samples, bounce_limit, specular,
     # subtract, sky_kind, sky_dim, bilinear, texels, scale, out_rgb,
@@ -135,4 +143,23 @@ def load() -> ctypes.CDLL:
     lib.ttrt_pathtrace.restype = ctypes.c_int
     lib.ttrt_pathtrace.argtypes = ([p] + [i] * 10 + [ctypes.c_uint32]
                                    + [p, p, p])
+    # n_sph, n_al, W, H, N, reduce_sum, out[10]
+    lib.ttrt_pathtrace_layout.restype = ctypes.c_int
+    lib.ttrt_pathtrace_layout.argtypes = [i] * 6 + [p]
     return lib
+
+
+def layout(name: str, keys: tuple, *args) -> dict:
+    """The launch shape from the library's ``name`` function (a
+    ``ttrt_*_layout``, called with ``args`` and an int out[len(keys)]),
+    keyed by ``keys``, with ``waves``: the blocks over those the card
+    holds at once (``blocks_per_sm`` x ``sms``). Needs a CUDA device;
+    raises on a CUDA error."""
+    out = (ctypes.c_int * len(keys))()
+    rc = getattr(load(), name)(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    shape = dict(zip(keys, out))
+    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
+                                        * shape["sms"])
+    return shape

@@ -8,7 +8,9 @@
 //   bool blocked(px, py, pz, ldx, ldy, ldz, has_tmax, tmax) const;
 //
 // and trace_sample runs one AA sample of the reference's frame loop over
-// it; sample_threads sums a pixel's samples. Floating point
+// it; sample_threads spreads a pixel's samples over threads of one block
+// and adds their colors in sample order and their counts (any number of
+// channels) for the kernel's pixel write. Floating point
 // rules (build with --fmad=false, no fast math; the fmaf/dot3 contractions
 // written out) are explained in render.cu.
 
@@ -417,18 +419,26 @@ __device__ __forceinline__ void sample_color(const Sample& s, const Sky& sky,
   }
 }
 
-// A pixel's samples on neighbouring threads of one block (render.cu's and
-// mesh.cu's frame kernels). A pixel's S sample threads take all its
-// samples in one round up to MAX_ROUND, else the fewest rounds of at most
-// MAX_ROUND, as even as they go; a block holds P = blockDim.x / S pixels,
-// consecutive in the band's row-major order.
+// A pixel's samples on neighbouring threads of one block (render.cu's,
+// mesh.cu's and pathtrace.cu's frame kernels). A pixel's S sample threads
+// take all its samples in one round up to MAX_ROUND, else the fewest
+// rounds of at most MAX_ROUND, as even as they go; a block holds P =
+// blockDim.x / S pixels, consecutive in the band's row-major order.
 constexpr int MAX_ROUND = 32;
+
+// A sample's NC counts; sample_threads adds each channel over the pixel's
+// samples as an unsigned integer, exact in any order.
+template <int NC>
+struct Counts {
+  unsigned c[NC];
+};
 
 // Shared memory of the sample sums of a block of `threads` threads and
 // `pixels` pixels: each thread's color of the round (3 floats) and its
-// count (an unsigned), and each pixel's sum between rounds (3 floats).
-inline size_t sample_sum_bytes(int threads, int pixels) {
-  return (3 * sizeof(float) + sizeof(unsigned)) * (size_t)threads +
+// `counts` counts (unsigneds), and each pixel's sum between rounds (3
+// floats).
+inline size_t sample_sum_bytes(int threads, int pixels, int counts) {
+  return (3 * sizeof(float) + counts * sizeof(unsigned)) * (size_t)threads +
          3 * sizeof(float) * (size_t)pixels;
 }
 
@@ -436,13 +446,15 @@ struct SampleSums {
   float* col_r;
   float* col_g;
   float* col_b;
-  unsigned* count;
+  unsigned* count;  // channel c of thread t at count[c * blockDim.x + t]
   float* acc;
   int P;        // pixels of the block
   float* end;   // the first float past the sums
 };
 
-// The sample sums of this block's shared memory from `base` on.
+// The sample sums with NC count channels of this block's shared memory
+// from `base` on.
+template <int NC>
 __device__ __forceinline__ SampleSums sample_sums(float* base, int S) {
   const int nt = blockDim.x;
   SampleSums sm;
@@ -451,34 +463,51 @@ __device__ __forceinline__ SampleSums sample_sums(float* base, int S) {
   sm.col_g = sm.col_r + nt;
   sm.col_b = sm.col_g + nt;
   sm.count = reinterpret_cast<unsigned*>(sm.col_b + nt);
-  sm.acc = reinterpret_cast<float*>(sm.count + nt);
+  sm.acc = reinterpret_cast<float*>(sm.count + NC * nt);
   sm.end = sm.acc + 3 * sm.P;
   return sm;
 }
 
+// The render and fused kernels' pixel write: the sample sum times `scale`
+// (1/N for the average, 1 for the sum) and the count.
+struct ScaledWrite {
+  float scale;
+  float* __restrict__ out_rgb;
+  int* __restrict__ out_count;
+
+  __device__ __forceinline__ void operator()(int pix, int n_pixels, float r,
+                                             float g, float b,
+                                             const Counts<1>& n) const {
+    out_rgb[pix] = r * scale;
+    out_rgb[n_pixels + pix] = g * scale;
+    out_rgb[2 * n_pixels + pix] = b * scale;
+    out_count[pix] = (int)n.c[0];
+  }
+};
+
 // A pixel's frame loop with its samples spread over its S threads:
 // thread s of the pixel takes sample k0 + s of each round k0 = 0, S, 2S,
 // ..., through sample(col, row, k, r, g, b), which returns the sample's
-// count. The pixel's first thread adds each round's colors in sample
+// Counts<NC>. The pixel's first thread adds each round's colors in sample
 // order, from 0.0f, the sum between rounds waiting in shared memory, so
 // the sum rounds as the plain versions' in-order sum over the samples
-// (render.py::render_band_plain, mesh_fused.py's), and writes it times
-// `scale`; the counts add as unsigned integers, exact in any order.
-// ROUNDS = false is the one-round launch (S == n_samples): without the
-// round loop nothing computed before the sample is kept across it. Every
-// thread of the block must call it (it synchronizes the block).
-template <bool ROUNDS, class SampleFn>
+// (render.py::render_band_plain, mesh_fused.py's, pathtrace.py's
+// _reduce_samples), and hands it with the counts' sums to write(pix,
+// n_pixels, r, g, b, counts). ROUNDS = false is the one-round launch (S
+// == n_samples): without the round loop nothing computed before the
+// sample is kept across it. Every thread of the block must call it (it
+// synchronizes the block).
+template <bool ROUNDS, int NC, class SampleFn, class WriteFn>
 __device__ __forceinline__ void sample_threads(
     const SampleSums& sm, int S, int W, int n_rows, int n_samples,
-    float scale, float* __restrict__ out_rgb, int* __restrict__ out_count,
-    SampleFn sample) {
-  const int tid = threadIdx.x;
+    SampleFn sample, WriteFn write) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int p = tid / S, s = tid - p * S;
   const int pix = blockIdx.x * sm.P + p;
   const int n_pixels = W * n_rows;
   const bool live = pix < n_pixels;
   const int row = pix / W, col = pix - row * W;
-  sm.count[tid] = 0;
+  for (int c = 0; c < NC; ++c) sm.count[c * nt + tid] = 0;
   const int n_rounds = ROUNDS ? (n_samples + S - 1) / S : 1;
   for (int round = 0; round < n_rounds; ++round) {
     const int k0 = round * S;
@@ -486,7 +515,8 @@ __device__ __forceinline__ void sample_threads(
     const int k = k0 + s;
     if (live && k < n_samples) {
       float pr, pg, pb;
-      sm.count[tid] += sample(col, row, k, pr, pg, pb);
+      const Counts<NC> n = sample(col, row, k, pr, pg, pb);
+      for (int c = 0; c < NC; ++c) sm.count[c * nt + tid] += n.c[c];
       sm.col_r[tid] = pr;
       sm.col_g[tid] = pg;
       sm.col_b[tid] = pb;
@@ -511,12 +541,12 @@ __device__ __forceinline__ void sample_threads(
       sm.acc[2 * sm.P + p] = b;
       continue;
     }
-    unsigned total = 0;
-    for (int j = 0; j < S; ++j) total += sm.count[tid + j];
-    out_rgb[pix] = r * scale;
-    out_rgb[n_pixels + pix] = g * scale;
-    out_rgb[2 * n_pixels + pix] = b * scale;
-    out_count[pix] = (int)total;
+    Counts<NC> total;
+    for (int c = 0; c < NC; ++c) {
+      total.c[c] = 0;
+      for (int j = 0; j < S; ++j) total.c[c] += sm.count[c * nt + tid + j];
+    }
+    write(pix, n_pixels, r, g, b, total);
   }
 }
 
@@ -556,22 +586,23 @@ cudaError_t allow_max_smem(Kernel kernel, int& optin) {
 // The block of `kernel` for n_pixels pixels of sh.samples threads each:
 // the smallest of block_min, 2 * block_min, ... block_max threads (whole
 // pixels) that keeps the most warps resident on an SM, with `fixed` bytes
-// of a block's shared memory and, when `sums`, its sample sums, at most
-// `max_smem` in all. Small blocks end sooner (a block lasts as long as
+// of a block's shared memory and, when `sum_counts` > 0, its sample sums
+// with that many count channels, at most `max_smem` in all. Small blocks end sooner (a block lasts as long as
 // its slowest thread); a large `fixed` table leaves room for few blocks
 // an SM and calls for larger ones. sh.resident stays 0 when no block
 // fits.
 template <class Kernel>
-cudaError_t pick_block(Kernel kernel, size_t fixed, bool sums, int max_smem,
-                       int block_min, int block_max, long long n_pixels,
-                       SampleShape& sh) {
+cudaError_t pick_block(Kernel kernel, size_t fixed, int sum_counts,
+                       int max_smem, int block_min, int block_max,
+                       long long n_pixels, SampleShape& sh) {
   sh.pixels = sh.threads = sh.resident = sh.blocks = 0;
   sh.smem = 0;
   int best_warps = 0;
   for (int b = block_min; b <= block_max; b *= 2) {
     const int P = b / sh.samples, threads = P * sh.samples;
     const size_t smem =
-        fixed + (sums ? sample_sum_bytes(threads, P) : (size_t)0);
+        fixed + (sum_counts > 0 ? sample_sum_bytes(threads, P, sum_counts)
+                                : (size_t)0);
     if (smem > (size_t)max_smem) continue;
     int resident = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -589,6 +620,29 @@ cudaError_t pick_block(Kernel kernel, size_t fixed, bool sums, int max_smem,
   if (sh.resident > 0)
     sh.blocks = (int)((n_pixels + sh.pixels - 1) / sh.pixels);
   return cudaSuccess;
+}
+
+// A launch shape into out[10], as the ttrt_*_layout functions report it:
+// sample threads of a pixel, pixels of a block, threads of a block,
+// blocks, dynamic shared bytes of a block, `staged` (the scene in shared
+// memory, 1, or read in place, 0), blocks an SM holds, SMs, and
+// `kernel`'s registers and local bytes of a thread. Returns a CUDA error
+// code (0 on success).
+template <class Kernel>
+int write_layout(const SampleShape& sh, bool staged, Kernel kernel,
+                 int* out) {
+  int dev = 0, sms = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[10] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
+                        (int)sh.smem, staged ? 1 : 0, sh.resident,
+                        sms, attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 constexpr int SPHERE_FLOATS = 9;

@@ -499,7 +499,7 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
     bx.order = order;
     tail = reinterpret_cast<float*>(order + ((K + 3) & ~3));
   }
-  const SampleSums sm = sample_sums(tail, S);
+  const SampleSums sm = sample_sums<1>(tail, S);
   const float* cam = cam_in;
   Lights L;
   L.dl = dl_in;
@@ -523,15 +523,16 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
 
   const MeshTracer<Boxes> tr{g, bx};
   const int n_lights = n_dl + n_pl;
-  sample_threads<ROUNDS>(
-      sm, S, W, n_rows, n_samples, scale, out_rgb, out_count,
+  sample_threads<ROUNDS, 1>(
+      sm, S, W, n_rows, n_samples,
       [&](int col, int row, int k, float& pr, float& pg, float& pb) {
         const Sample smp =
             trace_sample<true>(tr, L, cam, col, row, k, W, H, N,
                                bounce_limit, specular != 0, subtract != 0);
         sample_color(smp, sky, subtract != 0, pr, pg, pb);
-        return (unsigned)(smp.bounces + smp.hits * n_lights);
-      });
+        return Counts<1>{{(unsigned)(smp.bounces + smp.hits * n_lights)}};
+      },
+      ScaledWrite{scale, out_rgb, out_count});
 }
 
 MeshGeom make_geom(const float* sph, const float* sph_mat,
@@ -590,7 +591,7 @@ cudaError_t fused_shape(int K, int n_dl, int n_pl, int W, int n_rows,
       err = pick_block(kernel,
                        (sh.smem_boxes ? staged_box_bytes(K) : 0) +
                            (sh.smem_lights ? light_bytes : 0),
-                       true, optin, FUSED_BLOCK, FUSED_MAX_THREADS,
+                       1, optin, FUSED_BLOCK, FUSED_MAX_THREADS,
                        (long long)W * n_rows, sh);
     if (err != cudaSuccess) return err;
     if (sh.resident > 0) return cudaSuccess;
@@ -631,7 +632,7 @@ cudaError_t nearest_shape(int n, SampleShape& sh) {
   sh.samples = 1;
   sh.rounds = false;
   const cudaError_t err =
-      pick_block(cluster_nearest_kernel, 0, false, 0, NEAREST_BLOCK,
+      pick_block(cluster_nearest_kernel, 0, 0, 0, NEAREST_BLOCK,
                  NEAREST_MAX_THREADS, n, sh);
   if (err != cudaSuccess) return err;
   return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;

@@ -34,9 +34,10 @@
 // hits << 16, whose sums are the 16|16 sums (n_samples * bounce_limit <=
 // 0xFFFF, so no field carries). Outputs: (3, n_rows, W) float32 and a
 // per-pixel int32 count, 2.2 MB a frame at 480x280 against the 27 MB of
-// per-ray outputs the TPU kernel writes. sky_weight_kernel keeps one
-// thread per pixel and writes the (N, H, W) float32 sky weights,
-// sample-major as the JAX rays. The scene is a packed float32 buffer (the
+// per-ray outputs the TPU kernel writes. sky_weight_kernel runs one
+// thread per ray, a pixel's samples on neighbouring threads, and writes
+// the (N, H, W) float32 sky weights, sample-major as the JAX rays. The
+// scene is a packed float32 buffer (the
 // PackedScene layout: cam 17, spheres 9 each, plane 16, directional lights
 // 6 each, point lights 7 each) of any size, which each block copies into
 // shared memory once when it fits in 48 KB and otherwise reads in place;
@@ -71,14 +72,16 @@
 // balances. What remains is latency and
 // warp divergence (rays of one warp die at different bounces); the frame
 // is bound by the host (the ANSI encode, the 3,360,286-byte copy to the
-// host and write(2)).
+// host and write(2)). sky_weight_kernel had the same under-filled wave:
+// at 480x280x10 and t = 1.5 its 2,645,778 nearest-hit traces need 0.0055
+// ms at the FP32 peak; one thread a pixel took 0.1195 ms, one thread a
+// ray 0.0586 ms (10,500 blocks of 128, 6.6 waves) on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md, run AH).
 
 #include "common.cuh"
 
 namespace {
 
-// sky_weight_kernel's block.
-constexpr int BLOCK = 128;
 // render_kernel's launch: the smallest of RENDER_BLOCK, 2 * RENDER_BLOCK,
 // ... RENDER_MAX_THREADS threads (whole pixels of S sample threads) that
 // keeps the most warps resident on an SM (common.cuh::pick_block), with
@@ -94,6 +97,13 @@ constexpr int RENDER_MIN_BLOCKS = 2;
 // place from the global buffer (SMEM = false), through L1 and L2: a block
 // holding a larger table would leave room for only a few blocks on an SM.
 constexpr size_t SMEM_SCENE_BYTES = 48 * 1024;
+// sky_weight_kernel's launch: one thread per ray, the block the smallest
+// of SKY_BLOCK, 2 * SKY_BLOCK, ... SKY_MAX_THREADS threads that keeps the
+// most warps resident on an SM (common.cuh::pick_block), at most 64
+// registers a thread.
+constexpr int SKY_BLOCK = 128;
+constexpr int SKY_MAX_THREADS = 512;
+constexpr int SKY_MIN_BLOCKS = 2;
 
 size_t scene_bytes(int n_sph, int n_dl, int n_pl) {
   return sizeof(float) *
@@ -144,14 +154,14 @@ render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
               float scale, float* __restrict__ out_rgb,
               int* __restrict__ out_count) {
   extern __shared__ float sbuf[];
-  const SampleSums sm = sample_sums(sbuf, S);
+  const SampleSums sm = sample_sums<1>(sbuf, S);
   DemoTracer tr;
   Lights L;
   const float* cam =
       load_scene<SMEM>(scene_buf, n_sph, n_dl, n_pl, sm.end, tr, L);
   const int n_lights = n_dl + n_pl;
-  sample_threads<ROUNDS>(
-      sm, S, W, n_rows, n_samples, scale, out_rgb, out_count,
+  sample_threads<ROUNDS, 1>(
+      sm, S, W, n_rows, n_samples,
       [&](int col, int row, int k, float& pr, float& pg, float& pb) {
         const Sample smp =
             trace_sample<true>(tr, L, cam, col, row, k, W, H, N,
@@ -159,16 +169,22 @@ render_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
         sample_color(smp, sky, subtract != 0, pr, pg, pb);
         // hits may reach 0xFFFF (check_pixel_rate): shift it unsigned, so
         // bit 31 is set without a signed overflow
-        return PIXEL_RATE
-                   ? (unsigned)smp.bounces | ((unsigned)smp.hits << 16)
-                   : (unsigned)(smp.bounces + smp.hits * n_lights);
-      });
+        return Counts<1>{
+            {PIXEL_RATE ? (unsigned)smp.bounces | ((unsigned)smp.hits << 16)
+                        : (unsigned)(smp.bounces + smp.hits * n_lights)}};
+      },
+      ScaledWrite{scale, out_rgb, out_count});
 }
 
 // The sky weight of every ray, out_w[k * H * W + pixel]: the bounce chain
-// of render_kernel with the lighting compiled out (trace_sample<false>).
+// of render_kernel with the lighting compiled out (trace_sample<false>),
+// one thread per ray, pixel-major: a pixel's N samples on neighbouring
+// threads, so a warp's rays are a few pixels' near-identical samples and
+// its lanes end their chains together. On an NVIDIA H100 80GB HBM3 at
+// 700 W that was 5.5% faster than the sample-major order of the JAX rays,
+// whose stores are neighbours (PERF.md, run AH).
 template <bool SMEM>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(SKY_MAX_THREADS, SKY_MIN_BLOCKS)
 sky_weight_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
                   int n_pl, int W, int H, int N, int bounce_limit,
                   float* __restrict__ out_w) {
@@ -179,13 +195,13 @@ sky_weight_kernel(const float* __restrict__ scene_buf, int n_sph, int n_dl,
       load_scene<SMEM>(scene_buf, n_sph, n_dl, n_pl, sbuf, tr, L);
 
   const int n_pixels = W * H;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= n_pixels) return;
-  for (int k = 0; k < N; ++k) {
-    const Sample s = trace_sample<false>(tr, L, cam, pix % W, pix / W, k, W,
-                                         H, N, bounce_limit, false, false);
-    out_w[k * n_pixels + pix] = s.sky_w;
-  }
+  // W * H * N <= 0x7FFFFFFF (scene_ok); the last block may reach past it
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)n_pixels * N) return;
+  const int pix = (int)i / N, k = (int)i - pix * N;
+  const Sample s = trace_sample<false>(tr, L, cam, pix % W, pix / W, k, W,
+                                       H, N, bounce_limit, false, false);
+  out_w[k * n_pixels + pix] = s.sky_w;
 }
 
 bool scene_ok(int n_sph, int n_dl, int n_pl, int W, int H, int N) {
@@ -223,9 +239,32 @@ cudaError_t render_shape(int n_sph, int n_dl, int n_pl, int W, int n_rows,
   int optin = 0;
   cudaError_t err = allow_max_smem(kernel, optin);
   if (err == cudaSuccess)
-    err = pick_block(kernel, sh.smem_scene ? bytes : 0, true, optin,
+    err = pick_block(kernel, sh.smem_scene ? bytes : 0, 1, optin,
                      RENDER_BLOCK, RENDER_MAX_THREADS, (long long)W * n_rows,
                      sh);
+  if (err != cudaSuccess) return err;
+  return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+using SkyKernel = decltype(&sky_weight_kernel<true>);
+
+SkyKernel sky_kernel_for(bool smem) {
+  return smem ? sky_weight_kernel<true> : sky_weight_kernel<false>;
+}
+
+// The launch of sky_weight_kernel for W x H x N rays.
+cudaError_t sky_shape(int n_sph, int n_dl, int n_pl, int W, int H, int N,
+                      RenderShape& sh) {
+  sh.samples = 1;
+  sh.rounds = false;
+  const size_t bytes = scene_bytes(n_sph, n_dl, n_pl);
+  sh.smem_scene = bytes <= SMEM_SCENE_BYTES;
+  const SkyKernel kernel = sky_kernel_for(sh.smem_scene);
+  int optin = 0;
+  cudaError_t err = allow_max_smem(kernel, optin);
+  if (err == cudaSuccess)
+    err = pick_block(kernel, sh.smem_scene ? bytes : 0, 0, optin, SKY_BLOCK,
+                     SKY_MAX_THREADS, (long long)W * H * N, sh);
   if (err != cudaSuccess) return err;
   return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
@@ -265,33 +304,20 @@ int ttrt_render(const float* scene_buf, int n_sph, int n_dl, int n_pl, int W,
 }
 
 // The launch shape ttrt_render takes for a band of these sizes, into
-// out[10]: sample threads of a pixel, pixels of a block, threads of a
-// block, blocks, dynamic shared bytes of a block, scene staged (1) or read
-// in place (0), blocks an SM holds, SMs, and the chosen instantiation's
-// registers and local (spill) bytes of a thread. Returns a CUDA error code
-// (0 on success).
+// out[10] (common.cuh::write_layout). Returns a CUDA error code (0 on
+// success).
 int ttrt_render_layout(int n_sph, int n_dl, int n_pl, int W, int n_rows,
                        int n_samples, int pixel_rate, int* out) {
   if (n_sph < 0 || n_dl < 0 || n_pl < 0 || W < 1 || n_rows < 1 ||
       n_samples < 1)
     return (int)cudaErrorInvalidValue;
   RenderShape sh;
-  cudaError_t err = render_shape(n_sph, n_dl, n_pl, W, n_rows, n_samples,
-                                 pixel_rate != 0, sh);
-  int dev = 0, sms = 0;
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(
-        &attr, render_kernel_for(pixel_rate != 0, sh.smem_scene, sh.rounds));
+  const cudaError_t err = render_shape(n_sph, n_dl, n_pl, W, n_rows,
+                                       n_samples, pixel_rate != 0, sh);
   if (err != cudaSuccess) return (int)err;
-  const int vals[10] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
-                        (int)sh.smem, sh.smem_scene ? 1 : 0, sh.resident,
-                        sms, attr.numRegs, (int)attr.localSizeBytes};
-  for (int i = 0; i < 10; ++i) out[i] = vals[i];
-  return 0;
+  return write_layout(
+      sh, sh.smem_scene,
+      render_kernel_for(pixel_rate != 0, sh.smem_scene, sh.rounds), out);
 }
 
 // Launch sky_weight_kernel on `stream`; returns cudaGetLastError(). The
@@ -301,14 +327,27 @@ int ttrt_sky_weights(const float* scene_buf, int n_sph, int n_dl, int n_pl,
                      void* stream) {
   if (!scene_ok(n_sph, n_dl, n_pl, W, H, N))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = scene_bytes(n_sph, n_dl, n_pl);
-  const bool smem = bytes <= SMEM_SCENE_BYTES;
-  const auto kernel =
-      smem ? sky_weight_kernel<true> : sky_weight_kernel<false>;
-  const int grid = (W * H + BLOCK - 1) / BLOCK;
-  kernel<<<grid, BLOCK, smem ? bytes : 0, (cudaStream_t)stream>>>(
+  RenderShape sh;
+  const cudaError_t err = sky_shape(n_sph, n_dl, n_pl, W, H, N, sh);
+  if (err != cudaSuccess) return (int)err;
+  sky_kernel_for(sh.smem_scene)<<<sh.blocks, sh.threads, sh.smem,
+                                  (cudaStream_t)stream>>>(
       scene_buf, n_sph, n_dl, n_pl, W, H, N, bounce_limit, out_w);
   return (int)cudaGetLastError();
+}
+
+// The launch shape ttrt_sky_weights takes, into out[10]
+// (common.cuh::write_layout; one thread a ray: 1 sample thread, the rays
+// of a block as its pixels). Returns a CUDA error code (0 on success).
+int ttrt_sky_weights_layout(int n_sph, int n_dl, int n_pl, int W, int H,
+                            int N, int* out) {
+  if (!scene_ok(n_sph, n_dl, n_pl, W, H, N))
+    return (int)cudaErrorInvalidValue;
+  RenderShape sh;
+  const cudaError_t err = sky_shape(n_sph, n_dl, n_pl, W, H, N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return write_layout(sh, sh.smem_scene, sky_kernel_for(sh.smem_scene),
+                      out);
 }
 
 }  // extern "C"

@@ -126,16 +126,7 @@ def nearest_layout(n: int) -> dict:
     (``ttrt_cluster_nearest_layout``): threads of a block, the blocks, the
     blocks an SM holds and the SMs (hence ``waves``), and the kernel's
     registers and local (spill) bytes a thread. Needs a CUDA device."""
-    import ctypes
-
     from ttrt_torch.kernels import build
 
-    out = (ctypes.c_int * len(NEAREST_LAYOUT_KEYS))()
-    rc = build.load().ttrt_cluster_nearest_layout(n, out)
-    if rc != 0:
-        raise RuntimeError(
-            f"cluster_nearest kernel layout failed: CUDA error {rc}")
-    shape = dict(zip(NEAREST_LAYOUT_KEYS, out))
-    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
-                                        * shape["sms"])
-    return shape
+    return build.layout("ttrt_cluster_nearest_layout", NEAREST_LAYOUT_KEYS,
+                        n)

@@ -258,23 +258,14 @@ def fused_layout(scene, cfg: RenderConfig, n_rows: Optional[int] = None,
     whether the boxes and the lights are staged in shared memory, the
     blocks an SM holds and the SMs (hence ``waves``), and the kernel's
     registers and local (spill) bytes a thread. Needs a CUDA device."""
-    import ctypes
-
     from ttrt_torch.kernels import build
 
     tab = scene.clusters.tables
-    out = (ctypes.c_int * len(LAYOUT_KEYS))()
-    rc = build.load().ttrt_mesh_fused_layout(
-        tab.kb_sph, tab.kb_tri, scene.directional_lights.count,
-        scene.point_lights.count, cfg.width,
+    return build.layout(
+        "ttrt_mesh_fused_layout", LAYOUT_KEYS, tab.kb_sph, tab.kb_tri,
+        scene.directional_lights.count, scene.point_lights.count, cfg.width,
         cfg.height if n_rows is None else n_rows,
-        cfg.rays_per_pixel if n_samples is None else n_samples, out)
-    if rc != 0:
-        raise RuntimeError(f"fused mesh kernel layout failed: CUDA error {rc}")
-    shape = dict(zip(LAYOUT_KEYS, out))
-    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
-                                        * shape["sms"])
-    return shape
+        cfg.rays_per_pixel if n_samples is None else n_samples)
 
 
 def render_band_mesh_fused(scene, cfg: RenderConfig, row_offset: float = 0.0,

@@ -48,7 +48,7 @@ from ttrt_torch.config import ConfigError, RenderConfig, constants
 from ttrt_torch.kernels.render import (PLANE_FLOATS, SKY_KINDS, SPHERE_FLOATS,
                                        _dot3, _fma, _normalize3,
                                        _shadow_any_hit, _shadow_oc_terms,
-                                       _trace, _tuples,
+                                       RENDER_LAYOUT_KEYS, _trace, _tuples,
                                        pack_scene, sky_color)
 from ttrt_torch.scene import Scene
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
@@ -344,11 +344,13 @@ def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
                          *, count_rays: bool = True, reduce: str = "mean"
                          ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Path-trace one frame with the CUDA kernel (csrc/pathtrace.cu): one
-    thread per pixel writes the (3, H, W) clipped sample mean (or with
-    ``reduce='sum'`` the unclipped sample sum) and the
-    pixel's work, nearest-hit traces | hits << 16 and the unblocked NEE
-    shadow rays; the frame's work is ``pathtrace_frame_plain``'s. Raises
-    on anything the kernel does not take, CPU tensors included."""
+    thread per (pixel, sample), a pixel's samples in one block and added
+    there in sample order; writes the (3, H, W) clipped sample mean (or
+    with ``reduce='sum'`` the unclipped sample sum) and the pixel's work,
+    nearest-hit traces | hits << 16 and the unblocked NEE shadow rays
+    (``pathtrace_layout`` gives the launch shape); the frame's work is
+    ``pathtrace_frame_plain``'s. Raises on anything the kernel does not
+    take, CPU tensors included."""
     from ttrt_torch.kernels import build
 
     check_supported(scene, lights, cfg)
@@ -388,6 +390,23 @@ def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
 
 
 pathtrace_frame_cuda.launches = 0
+
+
+def pathtrace_layout(scene: Scene, lights, cfg: RenderConfig,
+                     reduce: str = "mean") -> dict:
+    """The launch shape ``pathtrace_frame_cuda`` takes
+    (``ttrt_pathtrace_layout``), with ``render_layout``'s keys: the sample
+    threads of a pixel, pixels, threads and dynamic shared bytes of a
+    block, the blocks, whether the scene is staged in shared memory, the
+    blocks an SM holds and the SMs (hence ``waves``), and the kernel's
+    registers and local (spill) bytes a thread. Needs a CUDA device."""
+    from ttrt_torch.kernels import build
+
+    _check_reduce(reduce)
+    return build.layout(
+        "ttrt_pathtrace_layout", RENDER_LAYOUT_KEYS, scene.spheres.count,
+        lights.count, cfg.width, cfg.height, cfg.rays_per_pixel,
+        int(reduce == "sum"))
 
 
 def pathtrace_frame(scene: Scene, lights, cfg: RenderConfig, seed: int, *,

@@ -1043,29 +1043,34 @@ def render_layout(scene: Scene, cfg: RenderConfig,
     scene is staged in shared memory, the blocks an SM holds and the SMs
     (hence ``waves``), and the kernel's registers and local (spill) bytes
     a thread. Needs a CUDA device."""
-    import ctypes
-
     from ttrt_torch.kernels import build
 
-    out = (ctypes.c_int * len(RENDER_LAYOUT_KEYS))()
-    rc = build.load().ttrt_render_layout(
-        scene.spheres.count, scene.directional_lights.count,
-        scene.point_lights.count, cfg.width,
+    return build.layout(
+        "ttrt_render_layout", RENDER_LAYOUT_KEYS, scene.spheres.count,
+        scene.directional_lights.count, scene.point_lights.count, cfg.width,
         cfg.height if n_rows is None else n_rows,
         cfg.rays_per_pixel if n_samples is None else n_samples,
-        int(pixel_rate), out)
-    if rc != 0:
-        raise RuntimeError(f"render kernel layout failed: CUDA error {rc}")
-    shape = dict(zip(RENDER_LAYOUT_KEYS, out))
-    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"]
-                                        * shape["sms"])
-    return shape
+        int(pixel_rate))
+
+
+def sky_weights_layout(scene: Scene, cfg: RenderConfig) -> dict:
+    """The launch shape ``sky_weights_cuda`` takes
+    (``ttrt_sky_weights_layout``), with ``render_layout``'s keys: one
+    thread a ray (``sample_threads`` 1, ``pixels_per_block`` the rays of
+    a block). Needs a CUDA device."""
+    from ttrt_torch.kernels import build
+
+    return build.layout(
+        "ttrt_sky_weights_layout", RENDER_LAYOUT_KEYS, scene.spheres.count,
+        scene.directional_lights.count, scene.point_lights.count, cfg.width,
+        cfg.height, cfg.rays_per_pixel)
 
 
 def sky_weights_cuda(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """``sky_weights`` with the CUDA kernel (``sky_weight_kernel``): one
-    thread per pixel writes the sky weight of each of its samples. Raises
-    on CPU tensors."""
+    thread per ray, a pixel's samples on neighbouring threads, writes its
+    sky weight (``sky_weights_layout`` gives the launch shape). Raises on
+    CPU tensors."""
     from ttrt_torch.kernels import build
 
     check_supported(scene, cfg)
