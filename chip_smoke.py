@@ -166,6 +166,33 @@ card through the sharded renderers' pure combine functions:
       each with the launch counts set to 0 before and read after: the
       kernels' counts rise, the plain versions' stay 0.
 
+JSON scene files, the physics tier and banded stills (every frame on the
+render and path-tracing kernels above):
+
+  SF. a JSON scene file (SCENE_FILE: 9 spheres, two directional lights,
+      no point light, the ground at y = -1) at 480x280x10x10 through
+      render_frame_cuda under 'uv_checker' and 'milky_way' and through
+      pathtrace_frame_cuda, each bit for bit with equal traces (work)
+      against its plain version; their times and bounds; 60, 10 and 10
+      frames of run_animation on the file's scene (the second under
+      milky_way, the third --pathtrace), the launch counts set to 0
+      before and read after; then the CLI, a process each: --scene-file F
+      --still (the file equal to the kernel's frame), --scene-file F
+      --frames 30 --no-input (the stream validated, the HUD's fps) and
+      --show-skybox colors --width 30 (six colors of truecolor cells).
+  PH. the physics tier, float32: 120 frames of the demo drop (4 substeps
+      of 1/60 s) and 40 steps of two spheres head-on, each run twice on
+      the card (equal bits) and once on the CPU (within PHYSICS_TOL), the
+      head-on world's pair touching; the drop's frames 0, 30, ..., 120
+      rendered by render_frame_cuda and render_frame_plain, bit for bit;
+      the step's time, its ATen ops and CUDA kernels a frame; 60 frames
+      of run_physics (the stage split, physics apart); python -m
+      ttrt_torch --scene physics --frames 3 --checkpoint C twice, beside
+      the step checks, the second resuming at the first's t.
+  BT. render_frame_tiled in 4 bands against the whole eager frame at the
+      full config (tests/test_tiled.py's bar), and render_still with
+      --bands 4 --renderer eager writing that banded frame.
+
 Prints, before the last line, one JSON line of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
@@ -393,6 +420,35 @@ SKY_CASES = (
                   {"width": 64, "height": 32, "rays_per_pixel": 2,
                    "bounce_limit": 3}, staged=False),
 )
+
+# Phase SF's JSON scene file: 9 spheres on a 3x3 grid (some fields left to
+# their defaults), two directional lights, no point light (the file format's
+# black stand-in) and the ground at y = -1.
+SCENE_FILE = {
+    "spheres": [
+        {"center": [-0.9, 0.0, -0.9], "radius": 0.4, "color": [1, 0, 0],
+         "reflectivity": 1.0},
+        {"center": [0.0, 0.2, -0.9], "radius": 0.3},
+        {"center": [0.9, 0.0, -0.9], "color": [0, 0, 1],
+         "reflectivity": 0.3},
+        {"center": [-0.9, -0.3, 0.0], "radius": 0.35, "color": [0, 1, 1]},
+        {"center": [0.0, 0.0, 0.0], "radius": 0.25, "color": [1, 1, 1],
+         "reflectivity": 0.9, "specularity": 20},
+        {"center": [0.9, 0.3, 0.0], "radius": 0.4, "color": [1, 0, 1],
+         "reflectivity": 0.5},
+        {"center": [-0.9, 0.0, 0.9], "radius": 0.3, "color": [1, 1, 0]},
+        {"center": [0.0, -0.4, 0.9], "radius": 0.45,
+         "color": [0.5, 0.8, 0.2], "reflectivity": 0.6},
+        {"center": [0.9, 0.0, 0.9], "radius": 0.2, "color": [0.9, 0.5, 0.1],
+         "reflectivity": 0.1},
+    ],
+    "ground": {"y": -1},
+    "directional_lights": [
+        {"direction": [-1, -1, -1], "color": [1, 1, 1]},
+        {"direction": [1, -0.5, 0.3], "color": [0.4, 0.3, 0.2]},
+    ],
+    "point_lights": [],
+}
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # FP32 outside the tensor cores, and device memory.
@@ -1277,14 +1333,148 @@ def on_streams(streams, calls) -> list:
     return out
 
 
-def demo_bound(rays: int, n_px: int, texel_bytes: int = 0):
+def demo_bound(rays: int, n_px: int, texel_bytes: int = 0,
+               n_spheres: int = 6, n_dlights: int = 1, n_plights: int = 1):
     """The demo kernel's bound (``bound_ms``): every trace costs at least a
-    shadow trace (the cheaper kind) against the 6 spheres and the plane;
-    it reads the packed scene and the sky's texels (an image sky's, once)
-    and writes 16 bytes a pixel."""
+    shadow trace (the cheaper kind) against the spheres (6 in the demo)
+    and the plane; it reads the packed scene and the sky's texels (an
+    image sky's, once) and writes 16 bytes a pixel."""
     return bound_ms(
-        rays * (6 * DEMO_SHADOW_SPHERE_OPS + DEMO_SHADOW_PLANE_OPS),
-        4 * (17 + 9 * 6 + 16 + 6 + 7) + texel_bytes + 16 * n_px)
+        rays * (n_spheres * DEMO_SHADOW_SPHERE_OPS + DEMO_SHADOW_PLANE_OPS),
+        4 * (17 + 9 * n_spheres + 16 + 6 * n_dlights + 7 * n_plights)
+        + texel_bytes + 16 * n_px)
+
+
+def file_scene_case(scene, cfg) -> dict:
+    """A JSON scene on the card through render_frame_cuda and
+    render_frame_plain: phase 2's bar, bit for bit, equal traces."""
+    import torch
+    from ttrt_torch.kernels import render
+
+    before = render.render_frame_cuda.launches
+    fb_k, rays_k = render.render_frame_cuda(scene, cfg)
+    assert render.render_frame_cuda.launches == before + 1
+    fb_p, rays_p = render.render_frame_plain(scene, cfg)
+    torch.cuda.synchronize()
+    out = fb_k.to_array().cpu().numpy()
+    assert out.shape == (cfg.height, cfg.width, 3) and np.isfinite(out).all()
+    stats = exact_bar(fb_p.to_array().cpu().numpy(), out, rays_p, rays_k)
+    assert stats["max_abs"] == 0.0, stats
+    return stats
+
+
+def file_pathtrace_case(scene, cfg, seed: int) -> dict:
+    """A JSON scene on the card through pathtrace_frame_cuda and its plain
+    version with the demo's area light: phase P1's bar, bit for bit,
+    equal work."""
+    import torch
+    from ttrt_torch.kernels import pathtrace
+    from ttrt_torch.render.pathtrace import default_area_lights
+
+    lights = default_area_lights(cfg, scene.spheres.radius.device)
+    before = pathtrace.pathtrace_frame_cuda.launches
+    fb_k, work_k = pathtrace.pathtrace_frame_cuda(scene, lights, cfg, seed)
+    assert pathtrace.pathtrace_frame_cuda.launches == before + 1
+    fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg, seed)
+    torch.cuda.synchronize()
+    out = fb_k.to_array().cpu().numpy()
+    assert out.shape == (cfg.height, cfg.width, 3) and np.isfinite(out).all()
+    stats = plain_bar(fb_p.to_array().cpu().numpy(), out,
+                      pathtrace.total_traces(work_p, lights.count),
+                      pathtrace.total_traces(work_k, lights.count))
+    stats["work"] = [int(v) for v in work_k]
+    stats["work_ref"] = [int(v) for v in work_p]
+    assert stats["max_abs"] == 0.0 and stats["work"] == stats["work_ref"], (
+        stats)
+    return stats
+
+
+# the two physics worlds of phase PH: the demo drop, frames of 4 substeps
+# of 1/60 s; tests/test_physics.py's two spheres head-on (restitution 1,
+# no gravity), steps of 0.01 s
+PHYSICS_WORLDS = ("demo", "head-on")
+# a physics run on the card against the same run on the CPU, float32: the
+# same IEEE operations in the same order (no atomics, no fused multiply-add)
+PHYSICS_TOL = 1e-6
+CKPT_FRAMES = 3  # frames each --checkpoint process of phase PH steps
+
+
+def physics_world(world: str, device):
+    """(state, params, dt, substeps) of a ``PHYSICS_WORLDS`` world in
+    float32 on ``device``."""
+    import torch
+    from ttrt_torch import assets
+    from ttrt_torch.physics import demo, world as pworld
+    from ttrt_torch.scene import demo_scene
+
+    if world == "demo":
+        scene = demo_scene(assets.load_skybox("colors", device=device), 8, 4,
+                           dtype=torch.float32, device=device)
+        state, params = demo.build_physics_demo(scene)
+        return state, params, 1.0 / 60.0, demo.SUBSTEPS
+    params = pworld.default_params([0.5, 0.5], device=device)._replace(
+        gravity=torch.zeros(3, device=device),
+        restitution=torch.tensor(1.0, device=device))
+    state = demo.physics_state_from_numpy(
+        [np.array([-1.0, 1.0]), np.zeros(2), np.zeros(2),
+         np.array([2.0, -2.0]), np.zeros(2), np.zeros(2), np.zeros(())],
+        dtype=torch.float32, device=device)
+    return state, params, 0.01, 1
+
+
+def physics_state_of(row):
+    """The ``PhysicsState`` of a row of ``physics_states``."""
+    from ttrt_torch.physics.world import PhysicsState
+    from ttrt_torch.vec import Vec3
+
+    n = (row.shape[0] - 1) // 6
+    c = row[:-1].reshape(6, n)
+    return PhysicsState(Vec3(*c[:3]), Vec3(*c[3:]), row[-1])
+
+
+def physics_frame_case(scene, cfg, params, state, offset) -> dict:
+    """A physics frame (the demo scene, its spheres at ``state``) rendered
+    by the frame step through render_frame_cuda and render_frame_plain:
+    bit for bit, equal traces."""
+    import torch
+    from ttrt_torch.kernels import render
+    from ttrt_torch.physics import demo
+
+    out = {}
+    for name, fn in (("kernel", render.render_frame_cuda),
+                     ("plain", render.render_frame_plain)):
+        step = demo.build_physics_frame_step(scene, cfg, params, fn,
+                                             substeps=0)
+        _, fb, rays = step(state, offset, True)
+        out[name] = (fb.to_array().cpu().numpy(), rays)
+    torch.cuda.synchronize()
+    stats = exact_bar(out["plain"][0], out["kernel"][0], out["plain"][1],
+                      out["kernel"][1])
+    assert stats["max_abs"] == 0.0, stats
+    return stats
+
+
+def physics_states(world: str, device, frames: int):
+    """Each frame's state of ``frames`` steps of ``world`` on ``device``:
+    a (frames, 7 * n) tensor of pos.x, pos.y, pos.z, vel.x, vel.y, vel.z
+    (n each) and t, and the number of frames in which a pair of spheres
+    touched (their gap under 1e-4 after the step)."""
+    import torch
+    from ttrt_torch.physics import world as pworld
+
+    state, params, dt, substeps = physics_world(world, device)
+    ii, jj = (torch.as_tensor(a, device=device)
+              for a in pworld._pair_indices(params.radius.shape[0]))
+    rows, touching = [], torch.zeros((), dtype=torch.int64, device=device)
+    for _ in range(frames):
+        state = pworld.physics_step(state, params, dt, substeps)
+        rows.append(torch.cat([*state.pos, *state.vel, state.t[None]]))
+        p = state.pos.to_array()
+        gap = ((p[ii] - p[jj]).norm(dim=1)
+               - params.radius[ii] - params.radius[jj])
+        touching += (gap < 1e-4).any()
+    return torch.stack(rows), int(touching)
+
 
 
 def main() -> int:
@@ -1444,6 +1634,7 @@ def main() -> int:
     kernels.append(pathtrace_phases(card, dev, full, report))
     kernels += sky_phases(card, dev, full, fused_work, report)
     kernels += mesh_axis_phases(card, dev, full)
+    kernels += scene_phases(card, dev, full)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2512,6 +2703,447 @@ def mesh_axis_phases(card: str, dev, full) -> list:
               launches=launches["objects"][8], max_abs_err=shard_err,
               ms=shard_ms, plain_ms=shard_plain_ms,
               bound_ms=shard_bound[0], bound_by=shard_bound[1]),
+    ]
+
+
+def _hud_fps(stream: bytes) -> list:
+    """The fps HUD values (TerminalDisplay.write_fps) of an ANSI stream."""
+    return [float(v) for v in re.findall(rb"\x1b\[0;0H([0-9.]+) fps\n",
+                                         stream)]
+
+
+def _cli_start(args: list, out_path: str):
+    """Start ``python -m ttrt_torch ARGS`` from this checkout, its stdout
+    into ``out_path``; ``_cli_end`` waits for it."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with open(out_path, "wb") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "ttrt_torch", *args],
+                                cwd=REPO, env=env, stdout=out,
+                                stderr=subprocess.PIPE)
+    return proc, out_path, time.perf_counter()
+
+
+def _cli_end(started, timeout: float = 300):
+    """(the process, its stderr bytes, its stdout bytes, its wall seconds)
+    of a ``_cli_start`` process, once it has exited 0."""
+    proc, out_path, t0 = started
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - t0
+    with open(out_path, "rb") as f:
+        data = f.read()
+    assert proc.returncode == 0, err.decode()[-2000:]
+    return err, data, wall
+
+
+def _cli(args: list, out_path: str, timeout: float = 300):
+    """Run ``python -m ttrt_torch ARGS`` to its end: ``_cli_end``'s."""
+    return _cli_end(_cli_start(args, out_path), timeout)
+
+
+class _OpCount:
+    """Counts the ATen operations dispatched inside its ``with`` block (on
+    the card nearly every one launches a kernel; views launch none)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _cuda_kernels(fn) -> int | None:
+    """The CUDA kernels ``fn()`` launches, from torch.profiler's device
+    events less its copies and fills; None when the profiler delivers no
+    device events."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def scene_phases(card: str, dev, full) -> list:
+    """Phases SF (JSON scene files), PH (the physics tier) and BT (banded
+    stills); returns their entries of the kernels line."""
+    import torch
+
+    from ttrt_torch import app, assets
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import pathtrace, render
+    from ttrt_torch.physics import demo, world as pworld
+    from ttrt_torch.render import integrator
+    from ttrt_torch.render.pathtrace import default_area_lights
+    from ttrt_torch.scene import demo_scene
+    from ttrt_torch.scenefile import load_scene_file
+    from ttrt_torch.term.encoder import encode_rgb_frame
+    from ttrt_torch.utils.profiling import StageTimers
+
+    t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    unpaced = full.with_(frame_rate=1e9)
+    n_px = full.width * full.height
+    size = ["--width", str(full.width), "--height", str(full.height),
+            "--spp", str(full.rays_per_pixel), "--bounces",
+            str(full.bounce_limit)]
+
+    def at(scene, t):
+        return scene.with_camera_frame(
+            orbit_camera_frame(t, dtype=torch.float32, device=dev))
+
+    # -- phase SF: JSON scene files ------------------------------------------
+    files = {}
+    for sky in ("uv_checker", "milky_way"):
+        files[sky] = os.path.join(tmp.name, f"{sky}.json")
+        with open(files[sky], "w") as f:
+            json.dump({**SCENE_FILE, "skybox": sky}, f)
+    scenes = {sky: load_scene_file(path, full.width, full.height,
+                                   device=dev)
+              for sky, path in files.items()}
+    counts = (scenes["uv_checker"].spheres.count,
+              scenes["uv_checker"].directional_lights.count,
+              scenes["uv_checker"].point_lights.count)
+    assert counts == (9, 2, 1), counts  # the point light: a black stand-in
+    sf_err = {"uv_checker": 0.0, "milky_way": 0.0, "pathtrace": 0.0}
+    sf_rays = {}
+    for sky, t in (("uv_checker", 0.0), ("uv_checker", 2.1),
+                   ("milky_way", 2.1)):
+        stats = file_scene_case(at(scenes[sky], t), full)
+        sf_err[sky] = max(sf_err[sky], stats["max_abs"])
+        sf_rays[sky] = stats["rays"]
+        print(f"phase SF: scene file, 9 spheres, 2 + 0 lights, ground y=-1, "
+              f"{sky} t={t}: render kernel vs plain {json.dumps(stats)}")
+    for t in (0.7, 3.3):
+        seed = pathtrace.frame_seed(0, t)
+        stats = file_pathtrace_case(at(scenes["uv_checker"], t), full, seed)
+        sf_err["pathtrace"] = max(sf_err["pathtrace"], stats["max_abs"])
+        sf_work = stats["work"]
+        print(f"phase SF: scene file, uv_checker t={t} seed={seed}: "
+              f"path-tracing kernel vs plain {json.dumps(stats)}")
+
+    # timing of the kernels on the file scene, t = 2.1 (0.7 for --pathtrace)
+    sf_ms, sf_plain_ms = {}, {}
+    for sky in ("uv_checker", "milky_way"):
+        s = at(scenes[sky], 2.1)
+        sf_ms[sky] = _median_ms(
+            lambda: render.render_frame_cuda(s, full, count_rays=False))
+        sf_plain_ms[sky] = _median_ms(
+            lambda: render.render_frame_plain(s, full, count_rays=False),
+            reps=5, warmup=1)
+    lights = default_area_lights(full, dev)
+    s = at(scenes["uv_checker"], 3.3)
+    seed = pathtrace.frame_seed(0, 3.3)
+    sf_ms["pathtrace"] = _median_ms(lambda: pathtrace.pathtrace_frame_cuda(
+        s, lights, full, seed, count_rays=False))
+    sf_plain_ms["pathtrace"] = _median_ms(
+        lambda: pathtrace.pathtrace_frame_plain(s, lights, full, seed,
+                                                count_rays=False),
+        reps=3, warmup=1)
+    texel_bytes = 4 * scenes["milky_way"].skybox.packed.numel()
+    sf_bound = {
+        sky: demo_bound(sf_rays[sky], n_px,
+                        texel_bytes if sky == "milky_way" else 0, 9, 2, 1)
+        for sky in ("uv_checker", "milky_way")}
+    sf_bound["pathtrace"] = bound_ms(
+        pathtrace_ops(sf_work, 9, lights.count,
+                      n_px * full.rays_per_pixel),
+        4 * (17 + 9 * 9 + 16 + 8 * lights.count) + 20 * n_px)
+    for key in sf_ms:
+        print(f"phase SF [{card}]: scene file, {key}: wrapper "
+              f"{sf_ms[key]:.4f} ms (CUDA events, median of 20), plain "
+              f"version {sf_plain_ms[key]:.3f} ms; bound "
+              f"{sf_bound[key][0]:.4f} ms by {sf_bound[key][1]}")
+
+    # the main paths of a file scene, each with the launch counts set to 0
+    # before and read after
+    counters = (render.render_frame_cuda, render.render_frame_plain,
+                pathtrace.pathtrace_frame_cuda,
+                pathtrace.pathtrace_frame_plain)
+    launches = {}
+    for name, sky, frames, kw in (
+            ("file", "uv_checker", N_FRAMES, {}),
+            ("file milky_way", "milky_way", 10, {}),
+            ("file pathtrace", "uv_checker", 10, {"pathtrace": True})):
+        sink = io.BytesIO()
+        timers = StageTimers()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        app.run_animation(unpaced, "colors", max_frames=frames,
+                          interactive=False, encode="device", stream=sink,
+                          timers=timers, scene=scenes[sky], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = [fn.launches for fn in counters]
+        validate_stream(sink.getvalue(), full.width, full.height, frames)
+        split = {k: round(st["mean_ms"], 4)
+                 for k, st in timers.summary().items()}
+        print(f"phase SF [{card}]: --scene-file ({sky}) {name}: {frames} "
+              f"frames in {wall:.3f} s = {frames / wall:.2f} fps end to end "
+              f"(pacing off), stage means (ms) {json.dumps(split)}; "
+              f"launches render {launches[name][:2]}, pathtrace "
+              f"{launches[name][2:]} (kernel, plain)")
+    assert launches["file"] == [N_FRAMES, 0, 0, 0], launches
+    assert launches["file milky_way"] == [10, 0, 0, 0], launches
+    assert launches["file pathtrace"] == [0, 0, 10, 0], launches
+
+    # the CLI, each command a process of its own, the three at once
+    still = os.path.join(tmp.name, "still.ppm")
+    runs = [_cli_start([*size, "--scene-file", files["uv_checker"],
+                        "--still", still, "--time", "2.1"],
+                       os.path.join(tmp.name, "still.out")),
+            _cli_start([*size, "--scene-file", files["uv_checker"],
+                        "--frames", "30", "--no-input"],
+                       os.path.join(tmp.name, "frames.out")),
+            _cli_start(["--show-skybox", "colors", "--width", "30"],
+                       os.path.join(tmp.name, "sky.out"))]
+    _, _, wall = _cli_end(runs[0])
+    img = assets.read_ppm(still)
+    assert img.shape == (full.height, full.width, 3) and img.std() > 0, (
+        img.shape)
+    ref = encode_rgb_frame(render.render_frame_cuda(
+        at(scenes["uv_checker"], 2.1), full)[0]).cpu().numpy()
+    assert np.array_equal(img, ref)
+    print(f"phase SF: --scene-file F --still out.ppm: {img.shape[1]}x"
+          f"{img.shape[0]}, equal to the kernel's frame, {wall:.1f} s")
+    _, data, wall = _cli_end(runs[1])
+    validate_stream(data, full.width, full.height, 30)
+    hud = _hud_fps(data)
+    print(f"phase SF [{card}]: python -m ttrt_torch --scene-file F --frames "
+          f"30 --no-input (paced to 60 fps): stream valid, HUD fps median "
+          f"{statistics.median(hud):.2f} (of {len(hud)}), process "
+          f"{wall:.1f} s")
+    _, data, wall = _cli_end(runs[2])
+    cells = re.findall(rb"\x1b\[48;2;(\d+);(\d+);(\d+)m  ", data)
+    assert len(cells) > 30 and len(set(cells)) == 6, (len(cells),
+                                                      set(cells))
+    print(f"phase SF: --show-skybox colors --width 30: {len(cells)} "
+          f"truecolor cells, 6 colors, {wall:.1f} s")
+    print(f"phase SF: {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase PH: the physics tier ------------------------------------------
+    t_ph = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # the CLI with a checkpoint: a second process resumes at the saved t.
+    # Each process steps a few frames; the first runs beside the drop's
+    # checks below, the second beside the head-on world's
+    ckpt = os.path.join(tmp.name, "state.ckpt")
+
+    def ckpt_start(run):
+        return _cli_start([*size, "--scene", "physics", "--frames",
+                           str(CKPT_FRAMES), "--no-input", "--checkpoint",
+                           ckpt], os.path.join(tmp.name, f"physics{run}.out"))
+
+    def ckpt_end(run, started):
+        err, data, wall = _cli_end(started)
+        validate_stream(data, full.width, full.height, CKPT_FRAMES)
+        with np.load(ckpt + ".npz") as saved:
+            t_saved = float(saved["arr_6"])
+        # each run steps CKPT_FRAMES frames of frame_duration seconds
+        run_t = CKPT_FRAMES * full.frame_duration
+        assert abs(t_saved - run * run_t) < 1e-5, (run, t_saved)
+        if run == 2:
+            assert f"resumed physics state at t={run_t:.2f}s".encode() in (
+                err), err.decode()[-500:]
+        print(f"phase PH [{card}]: python -m ttrt_torch --scene physics "
+              f"--frames {CKPT_FRAMES} --no-input --checkpoint C (run {run}):"
+              f" stream valid, HUD fps {_hud_fps(data)}, saved t={t_saved}, "
+              f"process {wall:.1f} s")
+
+    ph = {}
+    cli_run = ckpt_start(1)
+    for world, frames in (("demo", 120), ("head-on", 40)):
+        a, touch_a = physics_states(world, dev, frames)
+        b, touch_b = physics_states(world, dev, frames)
+        c, touch_c = physics_states(world, cpu, frames)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(a, b)) and touch_a == touch_b
+        d_cpu = float((a.cpu() - c).abs().max())
+        print(f"phase PH: {world}, {frames} frames, float32: two runs on "
+              f"the card equal bit for bit: {same}; max |d| against the "
+              f"CPU run {d_cpu} (tolerance {PHYSICS_TOL}); frames with a "
+              f"touching pair {touch_a} (card) {touch_c} (CPU); final t "
+              f"{float(a[-1, -1])}")
+        assert same, world
+        assert d_cpu <= PHYSICS_TOL, (world, d_cpu)
+        assert bool(torch.isfinite(a).all()), world
+        ph[world] = touch_a
+        if world == "demo":
+            drop = a
+            ckpt_end(1, cli_run)
+            cli_run = ckpt_start(2)
+    ckpt_end(2, cli_run)
+    assert ph["head-on"] > 0, ph  # GJK's contact path ran
+
+    # every 30th frame of the drop (the states of the first run above)
+    # rendered by the kernel and the plain version through the frame step
+    # (no substep: the state as stepped)
+    scene = demo_scene(assets.load_skybox("colors", device=dev), full.width,
+                       full.height, dtype=torch.float32, device=dev)
+    state0, params = demo.build_physics_demo(scene)
+    offset = torch.zeros(3, device=dev)
+    ph_err = 0.0
+    for i in range(0, 121, 30):
+        state = state0 if i == 0 else physics_state_of(drop[i - 1])
+        stats = physics_frame_case(scene, full, params, state, offset)
+        ph_err = max(ph_err, stats["max_abs"])
+        print(f"phase PH: physics frame {i} (t={float(state.t):.4f}): "
+              f"render kernel vs plain {json.dumps(stats)}")
+
+    # the step's cost: host clock around a synchronized step, median
+    dt = torch.tensor(full.frame_duration, device=dev)
+    s, times = state0, []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = pworld.physics_step(s, params, dt, demo.SUBSTEPS)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    with _OpCount() as ops:
+        pworld.physics_step(state0, params, dt, demo.SUBSTEPS)
+    kernels_a_frame = _cuda_kernels(
+        lambda: pworld.physics_step(state0, params, dt, demo.SUBSTEPS))
+    print(f"phase PH [{card}]: physics step, one frame of {demo.SUBSTEPS} "
+          f"substeps, 6 spheres (15 pairs): {statistics.median(times):.4f} "
+          f"ms (median of 30; {ops.n} ATen ops, "
+          f"{kernels_a_frame if kernels_a_frame else 'not measured'} CUDA "
+          f"kernels by torch.profiler, copies and fills left out)")
+
+    # the main path in this process: run_physics, counts 0 before. The
+    # frame rate is the physics' time step too, so the pace stays at 60 fps
+    # (the frames take longer: pace waits for nothing)
+    sink = io.BytesIO()
+    timers = StageTimers()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    app.run_physics(full, "colors", N_FRAMES, interactive=False,
+                    encode="device", device=dev, stream=sink, timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ph_launches = [fn.launches for fn in counters]
+    validate_stream(sink.getvalue(), full.width, full.height, N_FRAMES)
+    assert ph_launches == [N_FRAMES, 0, 0, 0], ph_launches
+    summary = timers.summary()
+    split = {k: [round(st["mean_ms"], 4), round(st["p50_ms"], 4)]
+             for k, st in summary.items()}
+    print(f"phase PH [{card}]: run_physics, {N_FRAMES} frames in "
+          f"{wall:.3f} s = {N_FRAMES / wall:.2f} fps end to end, stage "
+          f"[mean, median] (ms; physics is within render+copy) "
+          f"{json.dumps(split)}: render+copy without the physics "
+          f"{summary['render+copy']['mean_ms'] - summary['physics']['mean_ms']:.4f}"
+          f" ms; launches render {ph_launches[:2]} (kernel, plain)")
+
+    # the physics frame's render: time and bound at frame 120's state
+    s = state
+    frame_scene = scene._replace(spheres=scene.spheres._replace(
+        center=s.pos)).with_camera_frame(demo.physics_camera(s, full,
+                                                             offset))
+    _, ph_rays = render.render_frame_cuda(frame_scene, full)
+    ph_ms = _median_ms(lambda: render.render_frame_cuda(
+        frame_scene, full, count_rays=False))
+    ph_plain_ms = _median_ms(lambda: render.render_frame_plain(
+        frame_scene, full, count_rays=False), reps=5, warmup=1)
+    ph_bound = demo_bound(int(ph_rays), n_px)
+    print(f"phase PH [{card}]: physics frame 120's render: wrapper "
+          f"{ph_ms:.4f} ms, plain version {ph_plain_ms:.3f} ms, "
+          f"{int(ph_rays)} traces; bound {ph_bound[0]:.4f} ms by "
+          f"{ph_bound[1]}; PH {time.perf_counter() - t_ph:.1f} s")
+
+    # -- phase BT: the banded still ------------------------------------------
+    t_bt = time.perf_counter()
+    s = at(scene, 1.5)
+    eager = {}
+    for name, fn in (("whole", lambda: integrator.render_frame(
+            s, full, count_rays=True)),
+                     ("4 bands", lambda: integrator.render_frame_tiled(
+                         s, full, 4, count_rays=True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fb, rays = fn()
+        torch.cuda.synchronize()
+        eager[name] = (fb.to_array().cpu().numpy(), int(rays),
+                       1e3 * (time.perf_counter() - t0),
+                       torch.cuda.max_memory_allocated())
+    (ref, rays_ref, whole_ms, whole_mem), (til, rays_t, bands_ms, bands_mem) = (
+        eager["whole"], eager["4 bands"])
+    diff = np.abs(ref - til).max(axis=-1)
+    bt = {"frac_off_1e-3": float((diff > 1e-3).mean()),
+          "median_abs": float(np.median(diff)), "max_abs": float(diff.max()),
+          "rays": rays_t, "rays_ref": rays_ref}
+    assert bt["frac_off_1e-3"] <= 0.03 and bt["median_abs"] <= 2e-6, bt
+    assert abs(rays_ref - rays_t) <= max(0.01 * rays_ref, 32), bt
+    still = os.path.join(tmp.name, "bands.ppm")
+    app.render_still(full, "colors", 1.5, still, device=dev,
+                     renderer="eager", n_bands=4)
+    img = assets.read_ppm(still)
+    want = encode_rgb_frame(integrator.render_frame_tiled(
+        s, full, 4)[0]).cpu().numpy()
+    assert np.array_equal(img, want)
+    print(f"phase BT [{card}]: render_still --bands 4 --renderer eager, "
+          f"480x280x10x10: 4 bands vs the whole eager frame "
+          f"{json.dumps(bt)}; the still's file equals the banded frame; "
+          f"whole {whole_ms:.1f} ms, peak {whole_mem} bytes; bands "
+          f"{bands_ms:.1f} ms, peak {bands_mem} bytes (one run each); "
+          f"{time.perf_counter() - t_bt:.1f} s")
+    tmp.cleanup()
+    print(f"phases SF, PH, BT: {time.perf_counter() - t_start:.1f} s")
+
+    def entry(**kw) -> dict:
+        # no single PyTorch call renders a frame
+        return {"route": "cuda", "library_ms": None, **kw}
+
+    return [
+        entry(name="render_scene_file",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:894",
+              launches=launches["file"][0], max_abs_err=sf_err["uv_checker"],
+              ms=sf_ms["uv_checker"], plain_ms=sf_plain_ms["uv_checker"],
+              bound_ms=sf_bound["uv_checker"][0],
+              bound_by=sf_bound["uv_checker"][1]),
+        entry(name="render_image_sky_scene_file",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:989",
+              launches=launches["file milky_way"][0],
+              max_abs_err=sf_err["milky_way"], ms=sf_ms["milky_way"],
+              plain_ms=sf_plain_ms["milky_way"],
+              bound_ms=sf_bound["milky_way"][0],
+              bound_by=sf_bound["milky_way"][1]),
+        entry(name="pathtrace_scene_file",
+              source="ttrt_torch/kernels/csrc/pathtrace.cu",
+              replaces="ttrt/kernels/pathtrace_pallas.py:101",
+              launches=launches["file pathtrace"][2],
+              max_abs_err=sf_err["pathtrace"], ms=sf_ms["pathtrace"],
+              plain_ms=sf_plain_ms["pathtrace"],
+              bound_ms=sf_bound["pathtrace"][0],
+              bound_by=sf_bound["pathtrace"][1]),
+        entry(name="render_physics",
+              source="ttrt_torch/kernels/csrc/render.cu",
+              replaces="ttrt/kernels/render_pallas.py:894",
+              launches=ph_launches[0], max_abs_err=ph_err, ms=ph_ms,
+              plain_ms=ph_plain_ms, bound_ms=ph_bound[0],
+              bound_by=ph_bound[1]),
     ]
 
 

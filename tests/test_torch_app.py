@@ -64,6 +64,10 @@ def test_cli_cuda_without_a_card_exits_with_one_error_line():
     (["--pathtrace", "--renderer", "kernel", "--skybox", "milky_way"],
      "takes a procedural sky"),
     (["--skybox", "no_such_sky"], "Error opening skybox"),
+    (["--still", "unused.ppm", "--bands", "2", "--mesh", "auto"],
+     "--bands does not compose with --mesh"),
+    (["--still", "unused.ppm", "--bands", "2", "--renderer", "kernel"],
+     "--renderer kernel renders the whole frame"),
 ])
 def test_cli_refusals_are_one_line(args, match):
     proc = _run("-m", "ttrt_torch", "--device", "cpu", "--frames", "1",
@@ -76,7 +80,9 @@ def test_cli_refusals_are_one_line(args, match):
 def test_import_leaves_jax_and_ttrt_out():
     code = ("import sys, ttrt_torch.app, ttrt_torch.kernels.build, "
             "ttrt_torch.parallel.mesh, ttrt_torch.parallel.sharding, "
-            "ttrt_torch.parallel.objects; "
+            "ttrt_torch.parallel.objects, ttrt_torch.scenefile, "
+            "ttrt_torch.physics.gjk, ttrt_torch.physics.world, "
+            "ttrt_torch.physics.demo; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ttrt.')) or m == 'ttrt']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -94,9 +100,16 @@ def test_package_source_has_no_jax_import_and_no_fallback():
         assert not banned.search(src), path
     for name in ("kernels/render.py", "kernels/build.py", "kernels/mesh.py",
                  "kernels/mesh_fused.py", "parallel/mesh.py",
-                 "parallel/sharding.py", "parallel/objects.py"):
+                 "parallel/sharding.py", "parallel/objects.py",
+                 "physics/__init__.py", "physics/gjk.py", "physics/world.py",
+                 "physics/demo.py", "render/integrator.py"):
         src = (REPO / "ttrt_torch" / name).read_text()
         assert not re.search(r"^\s*except\b", src, re.M), name
+    # the scene file's one handler turns an unreadable file into the
+    # one-line SceneFileError
+    src = (REPO / "ttrt_torch" / "scenefile.py").read_text()
+    assert re.findall(r"^\s*except\b.*$", src, re.M) == [
+        "    except (OSError, json.JSONDecodeError) as e:"]
 
 
 def test_tf32_stays_off_after_main(tmp_path):

@@ -11,7 +11,9 @@ Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
         quantize + ANSI-encode
     -> one device->host uint8 copy -> one write(2) -> pace -> fps HUD
 
-Scene state is a pure function of t, so a run is resumed by its t.
+Scene state is a pure function of t, so a run is resumed by its t. The
+physics tier (``--scene physics``) steps its sphere world each frame
+instead; its state is saved to and resumed from ``--checkpoint``.
 
 ``--mesh`` renders each frame over a device mesh of ranks
 (``parallel``): every rank runs this loop's frame step on its share of
@@ -44,10 +46,15 @@ from ttrt_torch.kernels import mesh_fused, pathtrace, render
 from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene
 from ttrt_torch.parallel import mesh as pmesh
 from ttrt_torch.parallel import objects, sharding
+from ttrt_torch.physics.demo import (build_physics_demo,
+                                     build_physics_frame_step,
+                                     load_checkpoint, save_checkpoint)
 from ttrt_torch.render import integrator
 from ttrt_torch.render import pathtrace as estimator
 from ttrt_torch.scene import Scene, demo_scene
-from ttrt_torch.term.display import KeyboardInput, SigintFlag, TerminalDisplay
+from ttrt_torch.scenefile import SceneFileError, load_scene_file
+from ttrt_torch.term.display import (KeyboardInput, SigintFlag,
+                                     TerminalDisplay, print_ppm)
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
                                      encode_ansi_host, encode_rgb_frame)
 from ttrt_torch.utils.logging import log
@@ -458,20 +465,79 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
     return fps
 
 
+def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
+                max_frames: int | None = None, interactive: bool = True,
+                encode: str = "device", checkpoint: str | None = None, *,
+                device="cuda", stream=None,
+                timers: StageTimers | None = None, renderer: str = "auto",
+                stats: bool = False) -> float:
+    """The physics tier (``ttrt.app.run_physics``, app.py:675-753): the
+    demo's spheres dropped under gravity, stepped with GJK contacts every
+    frame (``physics.demo``) and rendered by ``_pick_renderer``'s path, in
+    ``run_animation``'s loop. With ``checkpoint`` the state is resumed from
+    that file when it exists and saved to it on exit. ``timers`` gets the
+    stage 'physics' (within 'render+copy') besides the loop's. Returns
+    the last measured fps."""
+    scene = make_scene("demo", cfg, skybox_name, device=device)
+    device = scene.spheres.radius.device
+    state, params = build_physics_demo(scene)
+    if checkpoint:
+        resumed = load_checkpoint(checkpoint, state)
+        if resumed is not None:
+            state = resumed
+            log(f"resumed physics state at t={float(state.t):.2f}s")
+    timers = timers if timers is not None else StageTimers()
+    step = build_physics_frame_step(scene, cfg, params,
+                                    _pick_renderer(scene, cfg, renderer),
+                                    timers=timers)
+    enc = _encoder(cfg, encode, device, None)
+
+    def frame_step(t: float, cam_offset: torch.Tensor):
+        nonlocal state
+        state, fb, _ = step(state, cam_offset)
+        return enc(fb)
+
+    try:
+        return _animate(cfg, frame_step, None, max_frames, interactive,
+                        encode, stats, 0, device, stream, timers)
+    finally:
+        if checkpoint:
+            save_checkpoint(checkpoint, state)
+            log(f"saved physics checkpoint to {checkpoint}")
+
+
+# JAX bands an eager still above this many primary rays (app.py:799-809)
+AUTO_BAND_RAYS = 2_000_000
+
+
 def render_still(cfg: RenderConfig, skybox_name: str, t: float,
                  out_path: str, *, device="cuda",
                  scene: Scene | MeshScene | None = None,
                  renderer: str = "auto", pathtrace: bool = False,
-                 seed: int = 0, mesh_spec: str | None = None) -> None:
+                 seed: int = 0, mesh_spec: str | None = None,
+                 n_bands: int | None = None) -> None:
     """Render one frame at time t and write it as PPM (or PNG/JPEG/BMP by
     extension, when PIL is installed). ``scene`` defaults to the demo
     scene. With ``pathtrace`` the frame comes from the eager Monte-Carlo
     estimator seeded with ``seed``, as the JAX app's still does
     (app.py:826-830). ``mesh_spec`` renders it over a device mesh
     (app.py:774-824; the estimator's ranks each draw their own stream);
-    rank 0 writes the file."""
+    rank 0 writes the file.
+
+    ``n_bands`` > 1 renders the frame through the eager integrator in that
+    many horizontal bands (``render_frame_tiled``), as JAX's still does;
+    None bands an eager frame of more than ``AUTO_BAND_RAYS`` primary rays
+    by the largest divisor of the height up to 16, and leaves a kernel's
+    frame whole. A mesh and ``renderer="kernel"`` refuse bands."""
+    if renderer == "kernel" and n_bands not in (None, 1):
+        raise ConfigError("--bands renders through the eager integrator; "
+                          "--renderer kernel renders the whole frame (drop "
+                          "--bands or use --renderer eager)")
     mesh_ctx, device = _mesh_context(mesh_spec, scene, device)
     with mesh_ctx as mesh:
+        if mesh is not None and n_bands not in (None, 1):
+            raise ConfigError("--bands does not compose with --mesh (the "
+                              "mesh's row axis already bands the frame)")
         if scene is None:
             scene = make_scene("demo", cfg, skybox_name, device=device)
         device = scene.spheres.radius.device
@@ -488,8 +554,17 @@ def render_still(cfg: RenderConfig, skybox_name: str, t: float,
                 fb = sharding.pathtrace_frame_sharded(s, lights, cfg, seed,
                                                       mesh)
         else:
-            fb, _ = _pick(scene, cfg, renderer, mesh)(s, cfg,
-                                                      count_rays=False)
+            render_fn = _pick(scene, cfg, renderer, mesh)
+            if n_bands is None:
+                n_bands = 1
+                if (mesh is None and render_fn is integrator.render_frame
+                        and cfg.n_primary_rays > AUTO_BAND_RAYS):
+                    n_bands = max(d for d in range(1, 17)
+                                  if cfg.height % d == 0)
+            if mesh is None and n_bands > 1:
+                fb, _ = integrator.render_frame_tiled(s, cfg, n_bands)
+            else:
+                fb, _ = render_fn(s, cfg, count_rays=False)
         if mesh is not None and dist.get_rank() != 0:
             return
     rgb = _to_host(encode_rgb_frame(fb))
@@ -499,7 +574,20 @@ def render_still(cfg: RenderConfig, skybox_name: str, t: float,
         Image.fromarray(rgb).save(out_path)
     else:
         assets.write_ppm(out_path, rgb)
-    log(f"wrote {out_path} ({cfg.width}x{cfg.height})")
+    log(f"wrote {out_path} ({cfg.width}x{cfg.height}, bands={n_bands or 1})")
+
+
+def show_skybox(name: str, width: int, *, device) -> None:
+    """Preview a cubemap's six faces in the terminal, the reference's
+    print_ppm debug aid (``ttrt.app``'s --show-skybox, app.py:1001-1014):
+    a 2x3 contact sheet of the faces, downscaled to about ``width``
+    columns."""
+    faces = assets.load_skybox(name, device=device).to_uint8().cpu().numpy()
+    sheet = np.concatenate(
+        [np.concatenate(list(faces[r * 3:(r + 1) * 3]), axis=1)
+         for r in range(2)], axis=0)
+    step = max(1, sheet.shape[1] // max(width, 8))
+    print_ppm(sheet[::step * 2, ::step])
 
 
 def main(argv=None) -> int:
@@ -537,6 +625,10 @@ def main(argv=None) -> int:
                    help="render a single still to a PPM instead of animating")
     p.add_argument("--time", type=float, default=0.0,
                    help="scene time for --still")
+    p.add_argument("--bands", type=int, default=None,
+                   help="--still: render through the eager integrator in N "
+                        "horizontal bands (bounds memory at high "
+                        "resolutions; default auto)")
     p.add_argument("--pipeline", type=int, default=0,
                    help="frames kept in flight with threaded host copies "
                         "(camera input lags by N frames; 0 = synchronous)")
@@ -550,9 +642,21 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the CUDA kernels; cpu: their plain PyTorch "
                         "versions (tests, development)")
-    p.add_argument("--scene", choices=["demo", "many"], default="demo",
+    p.add_argument("--scene", choices=["demo", "many", "physics"],
+                   default="demo",
                    help="demo: the reference's 6-sphere scene; many: "
-                        "random spheres over a triangle-mesh floor")
+                        "random spheres over a triangle-mesh floor; "
+                        "physics: GJK bouncing spheres")
+    p.add_argument("--scene-file", metavar="JSON", default=None,
+                   help="declarative JSON scene description (spheres, "
+                        "ground, lights, skybox); see "
+                        "ttrt_torch/scenefile.py")
+    p.add_argument("--show-skybox", metavar="NAME", default=None,
+                   help="preview a cubemap's six faces in the terminal and "
+                        "exit")
+    p.add_argument("--checkpoint", default=None,
+                   help="--scene physics: state checkpoint path (resumed "
+                        "on start, saved on exit)")
     p.add_argument("--n-spheres", type=int, default=10_000,
                    help="sphere count for --scene many")
     p.add_argument("--f64", action="store_true",
@@ -601,27 +705,54 @@ def main(argv=None) -> int:
             raise ConfigError(
                 "--energy-model subtract applies to the reflection "
                 "integrator, not --pathtrace")
-        device = (args.device if args.mesh is None
-                  else pmesh.local_device(args.device))
-        scene = make_scene(args.scene, cfg, args.skybox, device=device,
-                           n_spheres=args.n_spheres)
-        if args.still:
-            render_still(cfg, args.skybox, args.time, args.still,
-                         scene=scene, renderer=args.renderer,
-                         pathtrace=args.pathtrace, seed=args.seed,
-                         mesh_spec=args.mesh)
-            return 0
-        run_animation(cfg, args.skybox, args.frames,
-                      interactive=not args.no_input, encode=args.encode,
-                      scene=scene, stats=args.stats, pipeline=args.pipeline,
-                      renderer=args.renderer, pathtrace=args.pathtrace,
-                      seed=args.seed, mesh_spec=args.mesh)
-        return 0
-    except (assets.AssetError, ConfigError) as e:
+        return _dispatch(args, cfg)
+    except (assets.AssetError, ConfigError, SceneFileError) as e:
         # user errors: one line, no traceback (the reference exits with a
         # printf the same way, TerminalRayTracer.c:320)
         print(f"ttrt_torch: error: {e}", file=sys.stderr)
         return 1
+
+
+def _dispatch(args, cfg: RenderConfig) -> int:
+    """The parsed command, in ``ttrt.app._dispatch``'s order
+    (app.py:1000-1063): --show-skybox; a scene file, which --scene many
+    replaces; --still (of that scene, else the demo); --scene physics
+    (the demo's spheres, whatever the file); the animation."""
+    device = (args.device if args.mesh is None
+              else pmesh.local_device(args.device))
+    if args.show_skybox:
+        show_skybox(args.show_skybox, args.width, device=device)
+        return 0
+    scene = None
+    if args.scene_file:
+        scene = load_scene_file(args.scene_file, cfg.width, cfg.height,
+                                dtype=cfg.dtype, device=device)
+    if args.scene == "many":
+        scene = make_scene("many", cfg, args.skybox, device=device,
+                           n_spheres=args.n_spheres)
+    if args.mesh and args.scene == "physics":
+        raise ConfigError(
+            "--mesh does not apply to --scene physics (the physics step "
+            "is a single-device program; rendering tiers shard)")
+    if args.still:
+        render_still(cfg, args.skybox, args.time, args.still, device=device,
+                     scene=scene, renderer=args.renderer,
+                     pathtrace=args.pathtrace, seed=args.seed,
+                     mesh_spec=args.mesh, n_bands=args.bands)
+        return 0
+    if args.scene == "physics":
+        run_physics(cfg, args.skybox, args.frames,
+                    interactive=not args.no_input, encode=args.encode,
+                    checkpoint=args.checkpoint, device=device,
+                    renderer=args.renderer, stats=args.stats)
+        return 0
+    run_animation(cfg, args.skybox, args.frames,
+                  interactive=not args.no_input, encode=args.encode,
+                  scene=scene, stats=args.stats, pipeline=args.pipeline,
+                  device=device, renderer=args.renderer,
+                  pathtrace=args.pathtrace, seed=args.seed,
+                  mesh_spec=args.mesh)
+    return 0
 
 
 if __name__ == "__main__":

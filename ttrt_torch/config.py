@@ -85,6 +85,10 @@ class RenderConfig:
     def frame_duration(self) -> float:
         return 1.0 / self.frame_rate
 
+    @property
+    def n_primary_rays(self) -> int:
+        return self.width * self.height * self.rays_per_pixel
+
     def with_(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 

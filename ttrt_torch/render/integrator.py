@@ -131,20 +131,46 @@ def trace_batch(scene, o: Vec3, d: Vec3, cfg: RenderConfig, *,
     return pixel * inv_total, ray_count
 
 
+def _average(color: Vec3, n_rows: int, cfg: RenderConfig) -> Vec3:
+    """The (n_rows, W) pixels of a pixel-major ray batch: each pixel's N
+    samples summed in order, then scaled by 1/N."""
+    W, N = cfg.width, cfg.rays_per_pixel
+
+    def avg(c):
+        c = c.reshape(n_rows, W, N)
+        acc = c[..., 0]
+        for k in range(1, N):
+            acc = acc + c[..., k]
+        return acc * (1.0 / N)
+
+    return Vec3(avg(color.x), avg(color.y), avg(color.z))
+
+
 def render_frame(scene, cfg: RenderConfig, *, count_rays: bool = False
                  ) -> Tuple[Vec3, torch.Tensor]:
     """Render one frame: the (H, W) framebuffer as a Vec3 of (H, W)
     channels and the trace count (0 unless ``count_rays``)."""
     o, d = generate_rays(scene, cfg)
     color, ray_count = trace_batch(scene, o, d, cfg, count_rays=count_rays)
-    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
+    return _average(color, cfg.height, cfg), ray_count
 
-    def avg(c):
-        # sum the N samples of each pixel in order, then scale by 1/N
-        c = c.reshape(H, W, N)
-        acc = c[..., 0]
-        for k in range(1, N):
-            acc = acc + c[..., k]
-        return acc * (1.0 / N)
 
-    return Vec3(avg(color.x), avg(color.y), avg(color.z)), ray_count
+def render_frame_tiled(scene, cfg: RenderConfig, n_bands: int = 8, *,
+                       count_rays: bool = False
+                       ) -> Tuple[Vec3, torch.Tensor]:
+    """The high-res still path: render the frame in ``n_bands`` horizontal
+    bands, one after another, so that the live ray state is one band's
+    instead of the whole frame's. Returns ``render_frame``'s pair; the
+    height must divide by ``n_bands``."""
+    H = cfg.height
+    if H % n_bands:
+        raise ValueError(f"height {H} not divisible by n_bands {n_bands}")
+    bh = H // n_bands
+    bands, rays = [], []
+    for i in range(n_bands):
+        o, d = generate_rays(scene, cfg, row_start=i * bh, n_rows=bh)
+        color, r = trace_batch(scene, o, d, cfg, count_rays=count_rays)
+        bands.append(_average(color, bh, cfg))
+        rays.append(r)
+    fb = Vec3(*(torch.cat(channel) for channel in zip(*bands)))
+    return fb, torch.stack(rays).sum()

@@ -152,6 +152,12 @@ class Skybox:
     def dim(self) -> int:
         return self.packed.shape[-1]
 
+    def to_uint8(self) -> torch.Tensor:
+        """Unpack to (6, dim, dim, 3) uint8 (tests, image export)."""
+        p = self.packed
+        return torch.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF],
+                           dim=-1).to(torch.uint8)
+
 
 class Scene(NamedTuple):
     """Root aggregate (Scene struct, TerminalRayTracer.c:195-208)."""

@@ -89,6 +89,24 @@ class TerminalDisplay:
         self.stream.flush()
 
 
+def draw_screen_naive(fb_rgb: np.ndarray, stream=None) -> None:
+    """Per-pixel printf variant (draw_screen, TerminalRayTracer.c:1083-1099);
+    debugging aid only."""
+    stream = stream if stream is not None else sys.stdout.buffer
+    stream.write(CURSOR_HOME)
+    for row in fb_rgb:
+        for r, g, b in row:
+            stream.write(b"\033[48;2;%d;%d;%dm  \033[0m" % (r, g, b))
+        stream.write(b"\n")
+    stream.flush()
+
+
+def print_ppm(image_u8: np.ndarray, stream=None) -> None:
+    """Dump a texture to the terminal (print_ppm,
+    TerminalRayTracer.c:1174-1194)."""
+    draw_screen_naive(np.asarray(image_u8, np.uint8), stream)
+
+
 class KeyboardInput:
     """Non-blocking raw-mode arrow-key reader for interactive camera moves
     (the reference's aspirational get_camera_movement,

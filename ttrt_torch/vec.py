@@ -63,6 +63,12 @@ class Vec3(NamedTuple):
         """From a trailing-dim-3 tensor."""
         return Vec3(a[..., 0], a[..., 1], a[..., 2])
 
+    @staticmethod
+    def full_like(v: "Vec3", x, y, z) -> "Vec3":
+        """Each component filled with one value, shaped like ``v``'s."""
+        return Vec3(torch.full_like(v.x, x), torch.full_like(v.y, y),
+                    torch.full_like(v.z, z))
+
     def to_array(self) -> torch.Tensor:
         return torch.stack([self.x, self.y, self.z], dim=-1)
 
@@ -105,8 +111,11 @@ class Vec3(NamedTuple):
         """Self where ``mask``, else ``other``."""
         return Vec3(*(torch.where(mask, a, b) for a, b in zip(self, other)))
 
+    def length_sq(self) -> torch.Tensor:
+        return self.dot(self)
+
     def length(self) -> torch.Tensor:
-        return sqrt_rn(self.dot(self))
+        return sqrt_rn(self.length_sq())
 
     def normalize(self) -> "Vec3":
         """Guarded normalize: identity when length <= 1e-4
