@@ -38,6 +38,34 @@ The demo scene, through the render kernel (csrc/render.cu):
      off: the ANSI stream is validated, the kernel's launch count must rise
      by 60 and the plain version's must not move.
 
+The host runtime (ttrt_torch/native/, --encode auto, --batch, --profile,
+--debug-nans) and the many-object scene's grid and with_spheres, every
+frame on the kernels above:
+
+  RT. the native library built from csrc/ttrt_native.c into
+      ttrt_torch/_build/ and --encode auto resolving to host; demo frames
+      at t = 0.0, 1.5, 3.3 encoded three ways (the native encoder on the
+      copied RGB frame, encode_ansi_frame on the card, encode_ansi_host),
+      byte for byte; build_frame_batch_step(batch=8) at t0 = 1.5 against
+      build_frame_step(encode='host') at t0 + k/fps, bit for bit; 60
+      frames each of --encode device, --encode host and --batch 8 in
+      turns, 3 rounds, pacing off (host clock: fps and the StageTimers
+      split of the median round; the first round's streams validated;
+      the render launches counted with the counts set to 0 before), the native encode alone
+      and the RGB copy alone (host clock, medians of 20); python -m
+      ttrt_torch --frames 5 --profile DIR, with --encode auto and device
+      (two processes at once): the trace's CUDA kernels a frame and
+      render_kernel once a frame; 60 frames with --debug-nans and without,
+      in turns, twice each, and the check alone (host clock); many_sphere_scene's
+      build at 10k and 100k spheres with the grid (host clock); a 10k
+      scene moved by a seeded offset through with_spheres on the card: its
+      rebuilt pack byte for byte against a fresh pack_clusters,
+      cluster_nearest_cuda against the dense tester on 4,096 of its
+      primary rays (ids equal, t bit for bit), and its main paths (5
+      frames fused, 1 eager), the launch counts set to 0 before and read
+      after. Each section's end is printed in seconds from the phase's
+      start (host clock).
+
 The many-object scene (10k spheres over a 512-triangle floor), through the
 fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
 
@@ -1615,13 +1643,15 @@ def main() -> int:
           f"{N_FRAMES / wall:.2f} fps end to end (pacing off), stage means "
           f"(ms) {json.dumps(split)}; kernel launches {launches}, plain "
           f"launches {plain_launches}")
+    batch_launches = runtime_phase(card, dev, full)
     render_bound = demo_bound(rays, full.width * full.height)
     kernels = [{
         "name": "render",
         "route": "cuda",
         "source": "ttrt_torch/kernels/csrc/render.cu",
         "replaces": "ttrt/kernels/render_pallas.py:894",
-        "launches": launches,
+        # phase 5's one frame a step, and phase RT's --batch 8 main path
+        "launches": launches + batch_launches,
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1643,6 +1673,277 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+RT_BATCH = 8
+RT_ROUNDS = 3
+RT_PROFILE_FRAMES = 5
+RT_SUBSET = 4096
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock time of ``fn`` over ``reps`` calls, each after a
+    synchronize and ending in one, in ms."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _trace_kernels(path: str) -> tuple:
+    """(CUDA kernels, render_kernel launches) in a torch.profiler Chrome
+    trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    return len(kernels), sum("render_kernel" in n for n in kernels)
+
+
+def runtime_phase(card: str, dev, full) -> int:
+    """Phase RT; returns the render kernel's launches on the --batch main
+    path."""
+    import torch
+
+    from ttrt_torch import app, assets, native
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.kernels import mesh, mesh_fused
+    from ttrt_torch.kernels.render import (render_frame_cuda,
+                                           render_frame_plain)
+    from ttrt_torch.mesh.clusters import pack_clusters
+    from ttrt_torch.mesh.dense import dense_nearest
+    from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.render.integrator import generate_rays
+    from ttrt_torch.scene import demo_scene
+    from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
+                                         encode_ansi_host, encode_rgb_frame)
+    from ttrt_torch.utils.profiling import TRACE_FILE, StageTimers
+    from ttrt_torch.vec import Vec3
+
+    t_phase = time.perf_counter()
+
+    def lap() -> str:
+        return f"phase RT at {time.perf_counter() - t_phase:.1f} s"
+
+    # -- the native library and --encode auto --------------------------------
+    assert native.available, "the native library did not build"
+    lib = os.path.relpath(native.library_path, REPO)
+    assert lib.startswith(os.path.join("ttrt_torch", "_build")), lib
+    assert app.resolve_encode("auto") == "host"
+    print(f"phase RT: native library {lib}; --encode auto -> host")
+
+    # -- three encoders, byte for byte ---------------------------------------
+    sky = assets.load_skybox("colors", device=dev)
+    demo = demo_scene(sky, full.width, full.height, dtype=torch.float32,
+                      device=dev)
+    template = ansi_template(full.width, full.height, dev)
+    enc = native.NativeAnsiEncoder(full.height, full.width)
+    for t in (0.0, 1.5, 3.3):
+        fb, _ = render_frame_cuda(demo.with_camera_frame(orbit_camera_frame(
+            t, dtype=torch.float32, device=dev)), full, count_rays=False)
+        rgb = encode_rgb_frame(fb).cpu().numpy()
+        on_card = encode_ansi_frame(fb, template).cpu().numpy().tobytes()
+        native_bytes = enc.encode(rgb).tobytes()
+        assert native_bytes == on_card == encode_ansi_host(rgb), t
+        print(f"phase RT: t={t}: native, on-card and NumPy encodes equal, "
+              f"{len(native_bytes)} bytes")
+
+    # -- the batch step against the single step ------------------------------
+    zero = torch.zeros(3, device=dev)
+    frames = app.build_frame_batch_step(demo, full, RT_BATCH)(
+        1.5, zero).cpu()
+    single = app.build_frame_step(demo, full, "host")
+    ts = (torch.tensor(1.5) + torch.arange(RT_BATCH, dtype=torch.float32)
+          * torch.tensor(full.frame_duration)).tolist()
+    for k, t in enumerate(ts):
+        assert torch.equal(frames[k], single(t, zero).cpu()), (k, t)
+    print(f"phase RT: build_frame_batch_step(batch={RT_BATCH}) at t0=1.5 "
+          f"equals build_frame_step(encode='host') at t0 + k/fps, bit for "
+          f"bit, {RT_BATCH} frames ({lap()})")
+
+    # -- the loops in turns --------------------------------------------------
+    unpaced = full.with_(frame_rate=1e9)
+    modes = {"--encode device": {"encode": "device"},
+             "--encode host": {"encode": "host"},
+             f"--batch {RT_BATCH}": {"batch": RT_BATCH}}
+    runs = {name: [] for name in modes}
+    batch_launches = None
+    for round_ in range(RT_ROUNDS):
+        for name, kw in modes.items():
+            sink, timers = io.BytesIO(), StageTimers()
+            render_frame_cuda.launches = 0
+            render_frame_plain.launches = 0
+            t0 = time.perf_counter()
+            app.run_animation(unpaced, "colors", max_frames=N_FRAMES,
+                              interactive=False, device=dev, stream=sink,
+                              timers=timers, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if round_ == 0:  # each stream is 200 MB: the first round only
+                validate_stream(sink.getvalue(), full.width, full.height,
+                                N_FRAMES)
+            assert render_frame_plain.launches == 0
+            if "batch" in kw:
+                # issued < frames + batch, with 3 batches in flight
+                want = -(-(N_FRAMES + RT_BATCH) // RT_BATCH) * RT_BATCH
+                assert render_frame_cuda.launches == want, (
+                    render_frame_cuda.launches, want)
+                batch_launches = render_frame_cuda.launches
+            else:
+                assert render_frame_cuda.launches == N_FRAMES
+            split = {n: round(st["mean_ms"], 4)
+                     for n, st in timers.summary().items()}
+            runs[name].append((N_FRAMES / wall, split))
+    for name, rs in runs.items():
+        fps, split = sorted(rs, key=lambda r: r[0])[len(rs) // 2]
+        print(f"phase RT [{card}]: {name}: {N_FRAMES} frames, pacing off, "
+              f"median of {RT_ROUNDS} rounds in turns {fps:.2f} fps (all "
+              f"{[round(r[0], 2) for r in rs]}; host clock), that round's "
+              f"stage means (ms) {json.dumps(split)}")
+    print(f"phase RT: --batch {RT_BATCH} main path: render_kernel launched "
+          f"{batch_launches} times for {N_FRAMES} frames (the loop issues "
+          f"while issued < frames + batch), plain version 0")
+    fb, _ = render_frame_cuda(demo, full, count_rays=False)
+    rgb_dev = encode_rgb_frame(fb)
+    rgb = rgb_dev.cpu().numpy()
+    enc_ms = _host_ms(lambda: enc.encode(rgb))
+    copy_ms = _host_ms(lambda: rgb_dev.cpu())
+    batch_dev = app.build_frame_batch_step(demo, full, RT_BATCH)(1.5, zero)
+    batch_copy_ms = _host_ms(lambda: batch_dev.cpu())
+    print(f"phase RT [{card}]: native encode of one frame alone "
+          f"{enc_ms:.4f} ms; copy of the {rgb.nbytes}-byte RGB frame "
+          f"{copy_ms:.4f} ms, of a batch of {RT_BATCH} "
+          f"({batch_dev.numel()} bytes) {batch_copy_ms:.4f} ms (host clock, "
+          f"medians of 20) ({lap()})")
+
+    # -- --profile -----------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {}
+        for encode in ("auto", "device"):
+            prof = os.path.join(tmp, f"prof_{encode}")
+            started[encode] = (prof, _cli_start(
+                ["--frames", str(RT_PROFILE_FRAMES), "--no-input",
+                 "--encode", encode, "--profile", prof],
+                os.path.join(tmp, f"out_{encode}.bin")))
+        for encode, (prof, proc) in started.items():
+            _, data, wall = _cli_end(proc)
+            validate_stream(data, full.width, full.height,
+                            RT_PROFILE_FRAMES)
+            n_kernels, n_render = _trace_kernels(
+                os.path.join(prof, TRACE_FILE))
+            head = (f"phase RT: python -m ttrt_torch --frames "
+                    f"{RT_PROFILE_FRAMES} --encode {encode} --profile DIR "
+                    f"({wall:.1f} s): the trace is written")
+            if n_kernels == 0:  # CUPTI's events are not always delivered
+                print(f"{head}, with no CUDA events: kernels a frame not "
+                      f"measured")
+                continue
+            assert n_render == RT_PROFILE_FRAMES, n_render
+            print(f"{head} and holds {n_kernels} CUDA kernels = "
+                  f"{n_kernels / RT_PROFILE_FRAMES:.1f} a frame (set-up "
+                  f"included), render_kernel {n_render} (once a frame) "
+                  f"({lap()})")
+
+    # -- --debug-nans --------------------------------------------------------
+    walls = {False: [], True: []}
+    for debug in (False, True, True, False):
+        t0 = time.perf_counter()
+        app.run_animation(unpaced, "colors", max_frames=N_FRAMES,
+                          interactive=False, device=dev,
+                          stream=io.BytesIO(), debug_nans=debug)
+        torch.cuda.synchronize()
+        walls[debug].append(time.perf_counter() - t0)
+    check = app._finite_check(True)
+    check_ms = _host_ms(lambda: check(fb, 1.5))
+    per_frame = 1e3 * (sum(walls[True]) - sum(walls[False])) / (
+        2 * N_FRAMES)
+    print(f"phase RT [{card}]: --debug-nans: {N_FRAMES} frames pass; "
+          f"the loop {per_frame:+.4f} ms a frame against without (in turns, "
+          f"host clock), the check alone {check_ms:.4f} ms (host clock, "
+          f"median of 20, after a synchronize) ({lap()})")
+
+    # -- the grid, and with_spheres on the card ------------------------------
+    for n in (N_SPHERES, 100_000):
+        t0 = time.perf_counter()
+        scene = many_sphere_scene(sky, n, full.width, full.height,
+                                  dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        print(f"phase RT [{card}]: many_sphere_scene({n}) with its grid "
+              f"{tuple(scene.grid.cells.shape)} and cluster pack: "
+              f"{time.perf_counter() - t0:.3f} s (host clock)")
+    scene = many_sphere_scene(sky, N_SPHERES, full.width, full.height,
+                              dtype=torch.float32, device=dev)
+    offset = np.random.default_rng(12).uniform(
+        -0.5, 0.5, (3, N_SPHERES)).astype(np.float32)
+    moved = scene.spheres._replace(center=Vec3(*(
+        v + torch.as_tensor(w, device=dev)
+        for v, w in zip(scene.spheres.center, offset))))
+    t0 = time.perf_counter()
+    moved_scene = scene.with_spheres(moved)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    fresh = pack_clusters(moved, scene.triangles)
+    assert moved_scene.grid is None
+    for got, want in ((moved_scene.clusters, fresh),
+                      (moved_scene.clusters.tables, fresh.tables)):
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                assert a.device == b.device and a.dtype == b.dtype
+                assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+            elif not hasattr(a, "_fields"):
+                assert a == b
+    assert not torch.equal(moved_scene.clusters.sph, scene.clusters.sph)
+    at = moved_scene.with_camera_frame(orbit_camera_frame(
+        3.3, dtype=torch.float32, device=dev))
+    o, d = generate_rays(at, full)
+    pick = torch.as_tensor(np.random.default_rng(13).choice(
+        o.x.numel(), RT_SUBSET, replace=False), device=dev)
+    o = Vec3(*(v.reshape(-1)[pick] for v in o))
+    d = Vec3(*(v.reshape(-1)[pick] for v in d))
+    mesh.cluster_nearest_cuda.launches = 0
+    hit = mesh.cluster_nearest_cuda(moved_scene.clusters, o, d)
+    ref = dense_nearest(moved, scene.triangles, o, d)
+    assert mesh.cluster_nearest_cuda.launches == 1
+    assert torch.equal(hit.obj, ref.obj), int((hit.obj != ref.obj).sum())
+    assert torch.equal(hit.t, ref.t)
+    n_hits = int((hit.obj >= 0).sum())
+    print(f"phase RT: with_spheres ({N_SPHERES} spheres moved by a seeded "
+          f"offset in "
+          f"[-0.5, 0.5)): the pack rebuilt in {rebuild_s:.3f} s equals a "
+          f"fresh pack_clusters byte for byte; cluster_nearest_cuda on "
+          f"{RT_SUBSET} of its primary rays (t=3.3): ids equal to the dense "
+          f"tester's ({n_hits} hits), t bit for bit")
+    counters = (mesh_fused.render_band_mesh_fused_cuda,
+                mesh_fused.render_band_mesh_fused_plain,
+                mesh.cluster_nearest_cuda, mesh.cluster_nearest_plain)
+    unpaced = full.with_(frame_rate=1e9)
+    for renderer, frames in (("auto", 5), ("eager", 1)):
+        for fn in counters:
+            fn.launches = 0
+        sink = io.BytesIO()
+        t0 = time.perf_counter()
+        app.run_animation(unpaced, "colors", max_frames=frames,
+                          interactive=False, scene=moved_scene, stream=sink,
+                          renderer=renderer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        validate_stream(sink.getvalue(), full.width, full.height, frames)
+        counts = [fn.launches for fn in counters]
+        assert counts[1] == counts[3] == 0, counts
+        assert counts[0] == (frames if renderer == "auto" else 0), counts
+        assert (counts[2] > 0) == (renderer == "eager"), counts
+        print(f"phase RT [{card}]: the moved scene through run_animation "
+              f"--renderer {renderer}: {frames} frames in {wall:.3f} s; "
+              f"launches fused {counts[0]}, cluster_nearest {counts[2]}, "
+              f"plain versions 0 ({lap()})")
+    torch.cuda.synchronize()
+    return batch_launches
 
 
 def mesh_phases(card: str, dev, full, report: str) -> tuple:

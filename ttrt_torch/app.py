@@ -8,8 +8,13 @@ Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
         orbit camera pose
         render (a CUDA kernel, or the eager integrator or path tracer; the
             kernel's plain version with --device cpu)
-        quantize + ANSI-encode
-    -> one device->host uint8 copy -> one write(2) -> pace -> fps HUD
+        quantize, and ANSI-encode on the device (--encode device) or keep
+            the compact (H, W, 3) uint8 frame (--encode host)
+    -> one device->host uint8 copy -> the host's ANSI expansion (the native
+       C encoder, ``native``) -> one write(2) -> pace -> fps HUD
+
+``--encode auto``, the default, is 'host' when the native library is
+available, else 'device'.
 
 Scene state is a pure function of t, so a run is resumed by its t. The
 physics tier (``--scene physics``) steps its sphere world each frame
@@ -20,9 +25,17 @@ instead; its state is saved to and resumed from ``--checkpoint``.
 the frame, rank 0 picks each frame's time and camera offset and
 broadcasts them, and rank 0 alone encodes and writes the frame.
 
-One frame is rendered per step (the JAX package batches 8 frames per
-device program on an accelerator, to amortize a remote host link; the port
-has no such link and keeps batch 1).
+``--batch N`` renders N consecutive frames (t0 + k/fps) per step into one
+(N, H, W, 3) uint8 tensor and copies it to the host in one copy, several
+batches in flight; the host expands and paces each frame, with scene time
+following the frame index. ``--batch 0`` (the default) means 1: the JAX
+package picks 8 on an accelerator to amortize a remote host link, and the
+port's card is local. ``--mesh`` forces batch 1 and ``--pathtrace`` never
+batches, as in JAX.
+
+``--debug-nans`` checks each frame's float framebuffer before it is
+quantized and raises ``FloatingPointError`` on the first one that is not
+finite; off, it costs nothing.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ttrt_torch import assets
+from ttrt_torch import assets, native
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import mesh_fused, pathtrace, render
@@ -58,7 +71,7 @@ from ttrt_torch.term.display import (KeyboardInput, SigintFlag,
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
                                      encode_ansi_host, encode_rgb_frame)
 from ttrt_torch.utils.logging import log
-from ttrt_torch.utils.profiling import FrameMeter, StageTimers
+from ttrt_torch.utils.profiling import FrameMeter, StageTimers, profile_trace
 
 CAMERA_MOVE_SPEED = 0.1  # meters per keypress (reference stub's constant)
 _KEY_MOVES = {"up": (1, 1.0), "down": (1, -1.0), "left": (0, -1.0),
@@ -209,6 +222,37 @@ def _mesh_context(mesh_spec, scene, device):
     return pmesh.open_mesh(mesh_spec, device), device
 
 
+def resolve_encode(encode: str) -> str:
+    """``--encode``: 'auto' is 'host' when the native encoder is available,
+    else 'device'; 'device' and 'host' stand."""
+    if encode == "auto":
+        return "host" if native.available else "device"
+    return encode
+
+
+def host_encoder(cfg: RenderConfig):
+    """(H, W, 3) uint8 -> the frame's ANSI bytes on the host: the native C
+    encoder when it is available, else the NumPy one."""
+    if native.available:
+        return native.NativeAnsiEncoder(cfg.height, cfg.width).encode
+    return encode_ansi_host
+
+
+def _finite_check(debug_nans: bool):
+    """(fb, t) -> None: with ``debug_nans``, raise FloatingPointError when
+    the float framebuffer of scene time t holds a NaN or an infinity (one
+    sync a frame); without, nothing."""
+    if not debug_nans:
+        return lambda fb, t: None
+
+    def check(fb, t):
+        if not bool(torch.isfinite(torch.stack(tuple(fb))).all()):
+            raise FloatingPointError(
+                f"--debug-nans: non-finite framebuffer at t={float(t):.6f}s")
+
+    return check
+
+
 def _encoder(cfg: RenderConfig, encode: str, device, mesh):
     """fb -> frame bytes: the ANSI buffer ('device') or the compact (H, W,
     3) uint8 frame ('host'); over a mesh, None on every rank but 0, which
@@ -222,7 +266,8 @@ def _encoder(cfg: RenderConfig, encode: str, device, mesh):
 
 
 def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
-                     renderer: str = "auto", mesh=None):
+                     renderer: str = "auto", mesh=None,
+                     debug_nans: bool = False):
     """(t, cam_offset) -> frame bytes on the scene's device. ``cam_offset``
     is a world-frame camera translation driven by arrow keys (extension;
     reference stub at TerminalRayTracer.c:1196-1215).
@@ -231,19 +276,51 @@ def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
     compact (H, W, 3) uint8 frame, which the host expands. ``mesh`` (a
     ``parallel.mesh`` device mesh) renders the frame over its ranks
     (``_pick_renderer_sharded``); rank 0 alone gets the frame's bytes, the
-    others None."""
+    others None. ``debug_nans``: ``_finite_check``."""
     device = scene.spheres.radius.device
     render_fn = _pick(scene, cfg, renderer, mesh)
     enc = _encoder(cfg, encode, device, mesh)
+    check = _finite_check(debug_nans)
 
     def frame_step(t: float, cam_offset: torch.Tensor):
         frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
         frame = frame._replace(origin=frame.origin + cam_offset)
         fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
                           count_rays=False)
+        check(fb, t)
         return enc(fb)
 
     return frame_step
+
+
+def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
+                           renderer: str = "auto", debug_nans: bool = False):
+    """(t0, cam_offset) -> the (batch, H, W, 3) uint8 frames at scene times
+    t0 + k / fps (k < batch, computed in the config's dtype as JAX's
+    ``build_frame_batch_step``, app.py:302-334, computes them), rendered by
+    ``_pick_renderer``'s path into one tensor on the scene's device, for
+    one copy to the host. Frame k equals ``build_frame_step(...,
+    'host')`` at that time, bit for bit."""
+    device = scene.spheres.radius.device
+    render_fn = _pick_renderer(scene, cfg, renderer)
+    check = _finite_check(debug_nans)
+    step = torch.arange(batch, dtype=cfg.dtype) * torch.tensor(
+        cfg.frame_duration, dtype=cfg.dtype)
+
+    def batch_step(t0: float, cam_offset: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((batch, cfg.height, cfg.width, 3),
+                          dtype=torch.uint8, device=device)
+        ts = torch.tensor(t0, dtype=cfg.dtype) + step
+        for k, t in enumerate(ts.tolist()):
+            frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
+            frame = frame._replace(origin=frame.origin + cam_offset)
+            fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
+                              count_rays=False)
+            check(fb, t)
+            out[k] = encode_rgb_frame(fb)
+        return out
+
+    return batch_step
 
 
 def _frame_generator(seed: int, device) -> torch.Generator:
@@ -253,7 +330,8 @@ def _frame_generator(seed: int, device) -> torch.Generator:
 
 def build_pathtrace_frame_step(scene, cfg: RenderConfig,
                                encode: str = "device", seed: int = 0,
-                               renderer: str = "auto", mesh=None):
+                               renderer: str = "auto", mesh=None,
+                               debug_nans: bool = False):
     """(t, cam_offset) -> frame bytes by Monte-Carlo path tracing with the
     demo's area light (``ttrt.app.build_pathtrace_frame_step``,
     app.py:56-167). Each frame draws its own stream from ``seed`` and the
@@ -262,13 +340,15 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
     seeded with it. Over a ``mesh`` (app.py:81-123) every rank renders the
     whole image at spp/n_devices from its own stream of that seed
     (``parallel.sharding``), through the path the single device would
-    take; the mesh may have no objects axis."""
+    take; the mesh may have no objects axis. ``debug_nans``:
+    ``_finite_check``."""
     device = scene.spheres.radius.device
     lights = estimator.default_area_lights(cfg, device)
     use_kernel = _pick_pathtracer(scene, lights, cfg, renderer)
     if mesh is not None:
         sharding.check_pathtrace_mesh(cfg, mesh)
     enc = _encoder(cfg, encode, device, mesh)
+    check = _finite_check(debug_nans)
 
     def frame_step(t: float, cam_offset: torch.Tensor):
         frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
@@ -287,6 +367,7 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
         else:
             fb = estimator.pathtrace_frame(
                 s, lights, cfg, _frame_generator(fseed, device))
+        check(fb, t)
         return enc(fb)
 
     return frame_step
@@ -318,13 +399,6 @@ class FrameSync:
         return (t, offset) if go else None
 
 
-def _sleep_until(deadline: float) -> None:
-    """Absolute-deadline sleep on the monotonic clock (drift-free pacing)."""
-    delay = deadline - time.monotonic()
-    if delay > 0:
-        time.sleep(delay)
-
-
 def _to_host(buf: torch.Tensor) -> np.ndarray:
     return buf.cpu().numpy()
 
@@ -332,7 +406,7 @@ def _to_host(buf: torch.Tensor) -> np.ndarray:
 def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                   max_frames: int | None = None,
                   interactive: bool = True,
-                  encode: str = "device",
+                  encode: str = "auto",
                   scene: Scene | MeshScene | None = None,
                   stats: bool = False,
                   pipeline: int = 0,
@@ -342,7 +416,10 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
                   renderer: str = "auto",
                   pathtrace: bool = False,
                   seed: int = 0,
-                  mesh_spec: str | None = None) -> float:
+                  mesh_spec: str | None = None,
+                  batch: int = 0,
+                  profile_dir: str | None = None,
+                  debug_nans: bool = False) -> float:
     """The reference's frame loop (TerminalRayTracer.c:1315-1366): render,
     draw, pace to the frame budget, print fps. Returns the last measured
     fps.
@@ -357,31 +434,51 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     device mesh (``parallel.mesh.open_mesh``: the launcher's process
     group, or a one-rank group made here and torn down on return); rank 0
     runs this loop and writes the frames, the other ranks render until it
-    stops and return 0."""
-    mesh_ctx, device = _mesh_context(mesh_spec, scene, device)
-    with mesh_ctx as mesh:
-        if scene is None:
-            scene = make_scene("demo", cfg, skybox_name, device=device)
-        device = scene.spheres.radius.device
-        if pathtrace:
-            frame_step = build_pathtrace_frame_step(scene, cfg, encode, seed,
-                                                    renderer, mesh)
-        else:
-            frame_step = build_frame_step(scene, cfg, encode, renderer,
-                                          mesh)
-        sync = (FrameSync(device) if mesh is not None
-                and dist.get_world_size() > 1 else None)
-        if sync is not None and dist.get_rank() != 0:
-            while (msg := sync.follow()) is not None:
-                frame_step(msg[0], torch.as_tensor(msg[1], dtype=cfg.dtype,
-                                                   device=device))
-            return 0.0
-        try:
-            return _animate(cfg, frame_step, sync, max_frames, interactive,
-                            encode, stats, pipeline, device, stream, timers)
-        finally:
-            if sync is not None:
-                sync.stop()
+    stops and return 0.
+
+    ``encode`` is ``resolve_encode``'s. ``batch`` > 1 renders that many
+    frames a step (``_run_animation_batched``); 0 means 1, ``mesh_spec``
+    forces 1 and ``pathtrace`` never batches. ``profile_dir`` writes a
+    torch.profiler trace of the loop there (``profile_trace``);
+    ``debug_nans`` checks every frame (``_finite_check``)."""
+    encode = resolve_encode(encode)
+    if mesh_spec and batch > 1:
+        log("--mesh: forcing --batch 1 (the batched loop renders on one "
+            "device; --pipeline still applies)")
+    if mesh_spec or batch == 0:
+        batch = 1
+    with profile_trace(profile_dir):
+        if batch > 1 and not pathtrace:
+            if scene is None:
+                scene = make_scene("demo", cfg, skybox_name, device=device)
+            return _run_animation_batched(
+                cfg, scene, batch, max_frames, interactive, renderer, stats,
+                pipeline, stream, timers, debug_nans)
+        mesh_ctx, device = _mesh_context(mesh_spec, scene, device)
+        with mesh_ctx as mesh:
+            if scene is None:
+                scene = make_scene("demo", cfg, skybox_name, device=device)
+            device = scene.spheres.radius.device
+            if pathtrace:
+                frame_step = build_pathtrace_frame_step(
+                    scene, cfg, encode, seed, renderer, mesh, debug_nans)
+            else:
+                frame_step = build_frame_step(scene, cfg, encode, renderer,
+                                              mesh, debug_nans)
+            sync = (FrameSync(device) if mesh is not None
+                    and dist.get_world_size() > 1 else None)
+            if sync is not None and dist.get_rank() != 0:
+                while (msg := sync.follow()) is not None:
+                    frame_step(msg[0], torch.as_tensor(
+                        msg[1], dtype=cfg.dtype, device=device))
+                return 0.0
+            try:
+                return _animate(cfg, frame_step, sync, max_frames,
+                                interactive, encode, stats, pipeline, device,
+                                stream, timers)
+            finally:
+                if sync is not None:
+                    sync.stop()
 
 
 def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
@@ -396,7 +493,8 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
     fps = 0.0
     n = 0
     start = time.monotonic()
-    deadline = None
+    pace = _Pacer(cfg.frame_duration)
+    host_enc = host_encoder(cfg) if encode == "host" else None
     pool = (
         concurrent.futures.ThreadPoolExecutor(max_workers=max(2, pipeline))
         if pipeline > 0 else None
@@ -404,18 +502,11 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
     pending: collections.deque = collections.deque()
 
     def emit(buf: np.ndarray) -> None:
-        nonlocal deadline, n
+        nonlocal n
         with timers.stage("encode+write"):
-            disp.write_frame(encode_ansi_host(buf) if encode == "host"
-                             else buf)
-        # drift-free pacing: absolute deadlines advance by the budget
-        # (reference: relative nanosleep, TerminalRayTracer.c:1350-1355)
-        now = time.monotonic()
-        deadline = (now if deadline is None else deadline) + cfg.frame_duration
-        if deadline < now:  # fell behind: resync, don't death-spiral
-            deadline = now
+            disp.write_frame(buf if host_enc is None else host_enc(buf))
         with timers.stage("pace"):
-            _sleep_until(deadline)
+            pace()
         n += 1
 
     try:
@@ -465,19 +556,109 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
     return fps
 
 
+class _Pacer:
+    """Drift-free pacing: each call sleeps until an absolute deadline that
+    advances by the frame budget (reference: a relative nanosleep,
+    TerminalRayTracer.c:1350-1355), resyncing when the loop falls
+    behind."""
+
+    def __init__(self, budget: float):
+        self.budget = budget
+        self.deadline = None
+
+    def __call__(self) -> None:
+        now = time.monotonic()
+        self.deadline = (now if self.deadline is None
+                         else self.deadline) + self.budget
+        if self.deadline < now:  # fell behind: resync, don't death-spiral
+            self.deadline = now
+        native.sleep_until(self.deadline)
+
+
+def _run_animation_batched(cfg: RenderConfig, scene, batch: int,
+                           max_frames, interactive, renderer, stats,
+                           pipeline, stream, timers, debug_nans) -> float:
+    """The batched loop (``ttrt.app._run_animation_batched``,
+    app.py:422-519): ``batch`` frames a step (``build_frame_batch_step``)
+    and one copy to the host, ``max(2, pipeline or 3)`` batches in flight,
+    the host's ANSI expansion and pacing frame by frame. Scene time follows
+    the frame index (t = n / fps), not the wall clock, so a slow copy skips
+    no scene time; camera input takes effect from the next batch issued."""
+    device = scene.spheres.radius.device
+    batch_step = build_frame_batch_step(scene, cfg, batch, renderer,
+                                        debug_nans)
+    host_enc = host_encoder(cfg)
+    depth = max(2, pipeline or 3)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=depth)
+    pending: collections.deque = collections.deque()
+    cam_offset = np.zeros(3, np.float64)
+    offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
+    meter = FrameMeter()
+    timers = timers if timers is not None else StageTimers()
+    pace = _Pacer(cfg.frame_duration)
+    fps = 0.0
+    n = 0
+    issued = 0
+    try:
+        with SigintFlag() as sig, TerminalDisplay(stream) as disp, \
+                KeyboardInput() as keys:
+            while not sig.received and (max_frames is None
+                                        or n < max_frames):
+                while len(pending) < depth and (
+                        max_frames is None or issued < max_frames + batch):
+                    pending.append(pool.submit(
+                        _to_host,
+                        batch_step(issued * cfg.frame_duration, offset_dev)))
+                    issued += batch
+                with timers.stage("render+copy"):
+                    frames = pending.popleft().result()
+                for rgb in frames:
+                    if sig.received or (max_frames is not None
+                                        and n >= max_frames):
+                        break
+                    t0 = time.monotonic()
+                    if interactive:
+                        key = keys.poll()
+                        if key == "quit":
+                            sig.received = True
+                            break
+                        if key in _KEY_MOVES:
+                            axis, sign = _KEY_MOVES[key]
+                            cam_offset[axis] += sign * CAMERA_MOVE_SPEED
+                            offset_dev = torch.as_tensor(
+                                cam_offset, dtype=cfg.dtype, device=device)
+                    with timers.stage("encode+write"):
+                        disp.write_frame(host_enc(rgb))
+                    with timers.stage("pace"):
+                        pace()
+                    n += 1
+                    dt_frame = max(time.monotonic() - t0, 1e-9)
+                    fps = 1.0 / dt_frame
+                    meter.update(dt_frame)
+                    disp.write_fps(fps)
+    finally:
+        pool.shutdown(wait=True)
+    if stats:
+        timers.log_summary()
+        log(f"ema: {meter.hud()}  frames: {n}  batch: {batch}")
+    return fps
+
+
 def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
                 max_frames: int | None = None, interactive: bool = True,
-                encode: str = "device", checkpoint: str | None = None, *,
+                encode: str = "auto", checkpoint: str | None = None, *,
                 device="cuda", stream=None,
                 timers: StageTimers | None = None, renderer: str = "auto",
-                stats: bool = False) -> float:
+                stats: bool = False, debug_nans: bool = False) -> float:
     """The physics tier (``ttrt.app.run_physics``, app.py:675-753): the
     demo's spheres dropped under gravity, stepped with GJK contacts every
     frame (``physics.demo``) and rendered by ``_pick_renderer``'s path, in
     ``run_animation``'s loop. With ``checkpoint`` the state is resumed from
     that file when it exists and saved to it on exit. ``timers`` gets the
-    stage 'physics' (within 'render+copy') besides the loop's. Returns
-    the last measured fps."""
+    stage 'physics' (within 'render+copy') besides the loop's. ``encode``
+    and ``debug_nans`` are ``run_animation``'s. Returns the last measured
+    fps."""
+    encode = resolve_encode(encode)
     scene = make_scene("demo", cfg, skybox_name, device=device)
     device = scene.spheres.radius.device
     state, params = build_physics_demo(scene)
@@ -491,10 +672,12 @@ def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
                                     _pick_renderer(scene, cfg, renderer),
                                     timers=timers)
     enc = _encoder(cfg, encode, device, None)
+    check = _finite_check(debug_nans)
 
     def frame_step(t: float, cam_offset: torch.Tensor):
         nonlocal state
         state, fb, _ = step(state, cam_offset)
+        check(fb, state.t)
         return enc(fb)
 
     try:
@@ -636,9 +819,24 @@ def main(argv=None) -> int:
                    help="log per-stage timing summary to stderr on exit")
     p.add_argument("--no-input", action="store_true",
                    help="disable keyboard camera controls")
-    p.add_argument("--encode", choices=["device", "host"], default="device",
-                   help="ANSI encode on the device (full escape buffer over "
-                        "the link) or on the host (compact RGB copy)")
+    p.add_argument("--encode", choices=["auto", "device", "host"],
+                   default="auto",
+                   help="ANSI encode on the device (the full escape buffer "
+                        "copied to the host) or on the host (a compact RGB "
+                        "copy and the native C encoder); auto, the "
+                        "default, picks host when the native library is "
+                        "available")
+    p.add_argument("--batch", type=int, default=0,
+                   help="frames rendered per step and copied to the host "
+                        "in one copy (camera input lags by one batch; 0 = "
+                        "1; --mesh forces 1, --pathtrace never batches)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the animation "
+                        "(CPU and CUDA activity) to DIR/trace.json")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="check each frame's framebuffer before it is "
+                        "quantized and stop on the first NaN or infinity "
+                        "(FloatingPointError)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the CUDA kernels; cpu: their plain PyTorch "
                         "versions (tests, development)")
@@ -683,6 +881,8 @@ def main(argv=None) -> int:
         p.error("--width/--height/--spp/--bounces must be >= 1")
     if args.n_spheres < 1:
         p.error("--n-spheres must be >= 1")
+    if args.batch < 0:
+        p.error("--batch must be >= 0")
     # geometry must stay full float32 (the TF32 analog of the TPU's bf16
     # matmul trap); the port's 3x3 products are elementwise, and these
     # keep any later matmul or convolution honest too
@@ -744,14 +944,16 @@ def _dispatch(args, cfg: RenderConfig) -> int:
         run_physics(cfg, args.skybox, args.frames,
                     interactive=not args.no_input, encode=args.encode,
                     checkpoint=args.checkpoint, device=device,
-                    renderer=args.renderer, stats=args.stats)
+                    renderer=args.renderer, stats=args.stats,
+                    debug_nans=args.debug_nans)
         return 0
     run_animation(cfg, args.skybox, args.frames,
                   interactive=not args.no_input, encode=args.encode,
                   scene=scene, stats=args.stats, pipeline=args.pipeline,
                   device=device, renderer=args.renderer,
                   pathtrace=args.pathtrace, seed=args.seed,
-                  mesh_spec=args.mesh)
+                  mesh_spec=args.mesh, batch=args.batch,
+                  profile_dir=args.profile, debug_nans=args.debug_nans)
     return 0
 
 

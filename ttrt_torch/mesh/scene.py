@@ -4,12 +4,11 @@ floor". The scene keeps the demo's lights, camera and sky, so the shared
 integrator and lighting run unchanged; only the trace differs (registered
 with ``render.dispatch``).
 
-The JAX package traces such a scene on the CPU through a uniform grid; the
-port has no grid yet (``MeshScene.grid`` stays None). ``trace_ray_mesh``
-routes by the device of the rays: CPU tensors go to the dense tester
-``mesh.dense.dense_nearest``, CUDA tensors to the CUDA kernel
-``kernels.mesh.cluster_nearest_cuda``, which needs the scene's cluster
-pack and float32 rays.
+``trace_ray_mesh`` routes by the device of the rays: CPU tensors go
+through the scene's uniform grid (``mesh.grid.traverse_grid``), or without
+one through the dense tester ``mesh.dense.dense_nearest``; CUDA tensors go
+to the CUDA kernel ``kernels.mesh.cluster_nearest_cuda``, which needs the
+scene's cluster pack and float32 rays.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import torch
 from ttrt_torch.config import ConfigError, constants
 from ttrt_torch.mesh.clusters import ClusterPack, pack_clusters
 from ttrt_torch.mesh.dense import NearestHit, dense_nearest
+from ttrt_torch.mesh.grid import UniformGrid, build_grid, traverse_grid
 from ttrt_torch.mesh.triangles import Triangles, floor_mesh_np, ray_triangle
 from ttrt_torch.render import dispatch
 from ttrt_torch.render.intersect import Hit, ray_sphere_t0
@@ -37,7 +37,7 @@ class MeshScene(NamedTuple):
 
     spheres: Spheres
     triangles: Triangles
-    grid: None  # the uniform grid is not ported
+    grid: Optional[UniformGrid]  # None: CPU rays take the dense tester
     directional_lights: DirectionalLights
     point_lights: PointLights
     camera: Camera
@@ -47,15 +47,27 @@ class MeshScene(NamedTuple):
     def with_camera_frame(self, frame) -> "MeshScene":
         return self._replace(camera=self.camera._replace(frame=frame))
 
+    def with_spheres(self, spheres: Spheres) -> "MeshScene":
+        """The scene with its spheres moved (the physics tier's use). The
+        grid would be stale, so it is dropped, as JAX drops it, and CPU
+        rays take the dense tester. The cluster pack is rebuilt from the
+        moved spheres: the card traces a MeshScene only through its pack
+        (JAX drops the pack too and traces densely)."""
+        return self._replace(spheres=spheres, grid=None,
+                             clusters=pack_clusters(spheres, self.triangles))
+
 
 def trace_ray_mesh(scene: MeshScene, o: Vec3, d: Vec3, *,
                    sample_sky: bool = True, bilinear: bool = False) -> Hit:
     """Nearest-hit trace returning the demo trace's ``Hit`` contract (miss
     fixups, EPSILON back-offset, guarded normalize,
-    TerminalRayTracer.c:858-886): the dense tester for CPU rays, the
-    cluster-culled CUDA kernel for rays on the card (which raises without
-    a cluster pack or on non-float32 rays)."""
-    if o.x.device.type == "cpu":
+    TerminalRayTracer.c:858-886): for CPU rays the grid's walk, or the
+    dense tester in a scene without a grid; the cluster-culled CUDA kernel
+    for rays on the card (which raises without a cluster pack or on
+    non-float32 rays)."""
+    if o.x.device.type == "cpu" and scene.grid is not None:
+        gh = traverse_grid(scene.grid, scene.spheres, scene.triangles, o, d)
+    elif o.x.device.type == "cpu":
         gh = dense_nearest(scene.spheres, scene.triangles, o, d)
     else:
         from ttrt_torch.kernels.mesh import cluster_nearest_cuda
@@ -145,11 +157,13 @@ dispatch.register_trace(MeshScene, trace_ray_mesh)
 def many_sphere_scene(skybox: Skybox, n_spheres: int = 10_000,
                       width_px: int = 480, height_px: int = 280,
                       seed: int = 0, *, dtype=torch.float32, device,
-                      floor_cells: int = 16) -> MeshScene:
+                      floor_cells: int = 16,
+                      grid_resolution=None) -> MeshScene:
     """Config-4 scene: ``n_spheres`` random spheres in a slab above a
-    triangle-mesh checker floor, with the demo's lights. The numpy draws
-    from ``default_rng(seed)`` are the JAX package's, so both packages
-    build the same scene."""
+    triangle-mesh checker floor, with the demo's lights, its uniform grid
+    (``grid_resolution`` cells an axis, by default ``build_grid``'s rule)
+    and its cluster pack. The numpy draws from ``default_rng(seed)`` are
+    the JAX package's, so both packages build the same scene and grid."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     centers = np.stack([rng.uniform(-15.0, 15.0, n_spheres),
@@ -174,7 +188,9 @@ def many_sphere_scene(skybox: Skybox, n_spheres: int = 10_000,
     return MeshScene(
         spheres=spheres,
         triangles=tris,
-        grid=None,
+        grid=build_grid(spheres, tris, grid_resolution, dtype=dtype,
+                        device=device, np_spheres=(centers, radii),
+                        np_tris=tris_np),
         clusters=pack_clusters(spheres, tris),
         directional_lights=DirectionalLights(
             direction=row([-1.0, -1.0, -1.0]), color=row([1.0, 1.0, 1.0])),

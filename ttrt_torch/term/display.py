@@ -1,8 +1,10 @@
 """Host terminal control: frame output, cursor state, keyboard input (port
-of ``ttrt.term.display``, numpy-only).
+of ``ttrt.term.display``).
 
-The host's only per-frame jobs are one device->host buffer copy and one
-write(2): the render AND the ANSI encode happen on the device (encoder.py).
+The host's per-frame jobs are one device->host copy, the ANSI expansion
+of a compact RGB frame when the encode runs on the host (``native``), and
+one write(2); the render, and with ``--encode device`` the ANSI encode,
+happen on the device (encoder.py).
 
 Covers the reference's terminal-facing behaviors:
   - single-write frame emission (buffered_draw_screen,
@@ -23,6 +25,8 @@ import sys
 from typing import Optional
 
 import numpy as np
+
+from ttrt_torch.term.encoder import encode_ansi_host
 
 HIDE_CURSOR = b"\033[?25l"
 SHOW_CURSOR = b"\033[?25h"
@@ -80,6 +84,11 @@ class TerminalDisplay:
         n = self.stream.write(buf)
         self.stream.flush()
         return n
+
+    def write_rgb_frame(self, rgb: np.ndarray) -> int:
+        """Encode a compact (H, W, 3) uint8 frame on the host, then write it
+        (the NumPy encoder; the animation loop uses the native one)."""
+        return self.write_frame(encode_ansi_host(np.asarray(rgb)))
 
     def write_fps(self, fps: float) -> None:
         """Top-left fps HUD (TerminalRayTracer.c:1362-1365)."""
