@@ -221,6 +221,18 @@ render and path-tracing kernels above):
       full config (tests/test_tiled.py's bar), and render_still with
       --bands 4 --renderer eager writing that banded frame.
 
+The bench (ttrt_torch/bench.py, every frame on the kernels above):
+
+  BN. first each kernel the bench launches against its plain version at
+      the bench's own shapes (bench_checks: each tier's config, scene,
+      camera scale and first window time), bit for bit with equal traces;
+      then every tier of the bench once (bench.run(repeats=1)): the line
+      printed, every key of bench.LINE_KEYS finite and > 0, no
+      <tier>_error; the launch counters set to 0 before and read after:
+      every kernel's (render, fused, cluster_nearest, path tracer) > 0,
+      every plain version's 0. The kernels line's launches add the
+      bench's, not the checks'.
+
 Prints, before the last line, one JSON line of the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
@@ -835,40 +847,49 @@ def _case_scene(dev, case: PathtraceCase):
     return cfg, scene
 
 
-def pathtrace_case(dev, case: PathtraceCase) -> dict:
-    """Path-trace ``case`` with the kernel and its plain version on
-    ``dev``, the clipped mean and the sum: frames bit for bit equal, equal
-    work, the kernel launched once each, its scene staged and its samples
-    in rounds as ``case`` says. Returns each mode's stats and the launch
-    shape (``pathtrace_layout``)."""
+def pathtrace_exact(scene, lights, cfg, seed: int, reduce: str = "mean",
+                    label=None) -> dict:
+    """pathtrace_frame_cuda against its plain version on the same card
+    tensors: frames bit for bit equal, equal work, the kernel launched
+    once. Returns the stats; ``label`` names the case in a failure."""
     import torch
 
+    from ttrt_torch.kernels import pathtrace
+
+    cuda = pathtrace.pathtrace_frame_cuda
+    before = cuda.launches
+    fb_k, work_k = cuda(scene, lights, cfg, seed, reduce=reduce)
+    fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg, seed,
+                                                   reduce=reduce)
+    torch.cuda.synchronize()
+    assert cuda.launches == before + 1, (label, cuda.launches)
+    k = fb_k.to_array().cpu().numpy()
+    assert k.shape == (cfg.height, cfg.width, 3) and np.isfinite(k).all()
+    d = np.abs(fb_p.to_array().cpu().numpy().astype(np.float64) - k)
+    stats = {"max_abs": float(d.max()),
+             "diff_px": int((d > 0).any(axis=-1).sum()),
+             "work": [int(v) for v in work_k],
+             "work_ref": [int(v) for v in work_p]}
+    assert (stats["max_abs"] == 0.0 and stats["diff_px"] == 0
+            and stats["work"] == stats["work_ref"]), (label, reduce, stats)
+    return stats
+
+
+def pathtrace_case(dev, case: PathtraceCase) -> dict:
+    """Path-trace ``case`` with the kernel and its plain version on
+    ``dev``, the clipped mean and the sum (``pathtrace_exact`` each), its
+    scene staged and its samples in rounds as ``case`` says. Returns each
+    mode's stats and the launch shape (``pathtrace_layout``)."""
     from ttrt_torch.kernels import pathtrace
     from ttrt_torch.render import pathtrace as estimator
 
     cfg, scene = _case_scene(dev, case)
     lights = estimator.default_area_lights(cfg, dev)
     seed = pathtrace.frame_seed(0, 1.5)
-    cuda = pathtrace.pathtrace_frame_cuda
     out = {}
     for reduce in pathtrace.REDUCE:
-        before = cuda.launches
-        fb_k, work_k = cuda(scene, lights, cfg, seed, reduce=reduce)
-        fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg,
-                                                       seed, reduce=reduce)
-        torch.cuda.synchronize()
-        assert cuda.launches == before + 1, (case.key, cuda.launches)
-        k = fb_k.to_array().cpu().numpy()
-        assert k.shape == (cfg.height, cfg.width, 3) and np.isfinite(k).all()
-        d = np.abs(fb_p.to_array().cpu().numpy().astype(np.float64) - k)
-        stats = {"max_abs": float(d.max()),
-                 "diff_px": int((d > 0).any(axis=-1).sum()),
-                 "work": [int(v) for v in work_k],
-                 "work_ref": [int(v) for v in work_p]}
-        assert (stats["max_abs"] == 0.0 and stats["diff_px"] == 0
-                and stats["work"] == stats["work_ref"]), (case.key, reduce,
-                                                          stats)
-        out[reduce] = stats
+        out[reduce] = pathtrace_exact(scene, lights, cfg, seed, reduce,
+                                      case.key)
         shape = pathtrace.pathtrace_layout(scene, lights, cfg, reduce)
         assert shape["scene_staged"] == int(case.staged), (case.key, shape)
         assert (shape["sample_threads"] < cfg.rays_per_pixel) == case.rounds
@@ -1275,48 +1296,6 @@ def crowd(scene, n_spheres: int, n_dlights: int, n_plights: int,
                   t("spheres.material.specularity"))))
 
 
-def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` launches, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _kernel_ms(fn, name: str, reps: int = 20) -> tuple:
-    """(ms, how): the mean device time of the one kernel whose name holds
-    ``name`` over ``reps`` calls of ``fn``, from torch.profiler, and how it
-    was measured, for the line that prints it. The profiler has come back
-    without the kernel's events (the CUPTI trace is not always delivered):
-    it is asked three times, then the wrapper's median by CUDA events is
-    returned instead, and ``how`` says so."""
-    import torch
-
-    for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if name in e.key]
-        if len(rows) == 1:
-            return (rows[0].self_device_time_total / rows[0].count / 1e3,
-                    f"kernel alone, torch.profiler, mean of {reps}")
-    return (_median_ms(fn, reps),
-            f"NOT the kernel alone: the wrapper by CUDA events, median of "
-            f"{reps}, torch.profiler gave no {name} row")
-
-
 def _ptxas_lines(report: str, name: str = "mesh_fused_kernel") -> list:
     """The lines of an nvcc -Xptxas -v report that belong to the entry
     functions whose mangled name holds ``name``."""
@@ -1523,6 +1502,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.config import RenderConfig
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import build
@@ -1665,6 +1645,9 @@ def main() -> int:
     kernels += sky_phases(card, dev, full, fused_work, report)
     kernels += mesh_axis_phases(card, dev, full)
     kernels += scene_phases(card, dev, full)
+    bench_launches = bench_phase(card, dev)
+    for entry in kernels:
+        entry["launches"] += bench_launches.get(entry["name"], 0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1954,6 +1937,7 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     import torch
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import mesh, mesh_fused
     from ttrt_torch.mesh.dense import dense_nearest
@@ -2222,6 +2206,7 @@ def pathtrace_phases(card: str, dev, full, report: str) -> dict:
     import torch
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import pathtrace
     from ttrt_torch.kernels.mesh import cluster_nearest_cuda
@@ -2390,6 +2375,7 @@ def sky_phases(card: str, dev, full, fused_work: dict, report: str) -> list:
     import torch
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import mesh_fused, pathtrace, render
     from ttrt_torch.mesh.scene import many_sphere_scene
@@ -2691,6 +2677,7 @@ def mesh_axis_phases(card: str, dev, full) -> list:
     import torch
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import mesh, mesh_fused, pathtrace, render
     from ttrt_torch.mesh.scene import many_sphere_scene
@@ -3067,20 +3054,145 @@ class _OpCount:
         return self._mode.__exit__(*exc)
 
 
-def _cuda_kernels(fn) -> int | None:
-    """The CUDA kernels ``fn()`` launches, from torch.profiler's device
-    events less its copies and fills; None when the profiler delivers no
-    device events."""
+# the kernels line's entries and the bench's launch counters of their kernels
+BENCH_ENTRIES = {"render": "render_frame_cuda",
+                 "mesh_fused": "render_band_mesh_fused_cuda",
+                 "cluster_nearest": "cluster_nearest_cuda",
+                 "pathtrace": "pathtrace_frame_cuda"}
+
+
+def bench_checks(card: str, dev) -> dict:
+    """Phase BN's checks: each kernel the bench's tiers launch against its
+    plain version on the same card tensors, at the first time of each
+    window with the tier's own config, scene and camera scale: the demo
+    (480x280x10x10, t = 2.0, which the loops also render), the image sky
+    nearest and bilinear (t = 900), the fused kernel on 10k spheres inside
+    the cloud (t = 1300) and from the exterior camera (x20 at 1500, 1533,
+    1566) and on 100k (x20 at 2100, 2133, 2166), cluster_nearest on every
+    batch of the eager 10k frame at t = 1300, the render kernel on the
+    physics frame's scene after its first step (240x64x4x4), the path
+    tracer at 240x64x40x4 and x4x4 (t = 1700, the bench's seed). Frames
+    bit for bit, equal traces (work), equal hits. Returns the launches
+    these comparisons made, by wrapper: they are not the bench's."""
     import torch
 
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    from ttrt_torch import bench
+    from ttrt_torch.kernels import mesh, mesh_fused, render
+    from ttrt_torch.physics.demo import (build_physics_demo,
+                                         build_physics_frame_step)
+    from ttrt_torch.render.pathtrace import default_area_lights
+
+    before = {fn.__name__: fn.launches
+              for pair in bench.COUNTERS for fn in pair}
+
+    def size(cfg) -> str:
+        return (f"{cfg.width}x{cfg.height}x{cfg.rays_per_pixel}x"
+                f"{cfg.bounce_limit}")
+
+    def same(label, kernel, plain, scene, cfg):
+        label = f"{label} {size(cfg)}"
+        fb_k, rays_k = kernel(scene, cfg)
+        fb_p, rays_p = plain(scene, cfg)
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset")))
-    return n or None
+        out = fb_k.to_array().cpu().numpy()
+        assert out.shape == (cfg.height, cfg.width, 3), (label, out.shape)
+        assert np.isfinite(out).all(), label
+        stats = exact_bar(fb_p.to_array().cpu().numpy(), out, rays_p, rays_k)
+        assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, (label,
+                                                                   stats)
+        print(f"phase BN [{card}]: {label}, kernel vs plain: "
+              f"{json.dumps(stats)}")
+
+    first = {tier: base for tier, (base, _) in bench.WINDOWS.items()}
+    demo = render.render_frame_cuda, render.render_frame_plain
+    cfg = bench.DEMO
+    same(f"rays t={first['rays']}", *demo,
+         bench.posed(bench._demo(cfg, dev), cfg, first["rays"]), cfg)
+    textured = bench.posed(bench.textured_scene(cfg, dev), cfg,
+                           first["textured"])
+    for bilinear in (False, True):
+        same(f"textured bilinear={bilinear} t={first['textured']}", *demo,
+             textured, cfg.with_(skybox_bilinear=bilinear))
+    del textured
+
+    cfg = bench.MANY
+    fused = (mesh_fused.render_band_mesh_fused_cuda,
+             mesh_fused.render_band_mesh_fused_plain)
+    x = bench.FLYOVER_SCALE
+    for n, label in ((10_000, "10k"), (100_000, "100k")):
+        scene = bench.many_scene(n, cfg, dev)
+        cases = [(t, x) for t in bench.FLYOVER_BASES[label]]
+        if label == "10k":
+            cases.insert(0, (first["many"], 1.0))
+        for t, scale in cases:
+            same(f"fused {n} spheres t={t} x{scale:g}", *fused,
+                 bench.posed(scene, cfg, t, scale), cfg)
+        if label == "10k":
+            calls = eager_batches(bench.posed(scene, cfg, first["many"]),
+                                  cfg)
+            for i, (o, d) in enumerate(calls):
+                stats = nearest_bar(
+                    mesh.cluster_nearest_plain(scene.clusters, o, d),
+                    mesh.cluster_nearest_cuda(scene.clusters, o, d))
+                print(f"phase BN [{card}]: cluster_nearest, batch {i} of "
+                      f"{len(calls)} of the eager 10k frame at "
+                      f"t={first['many']}, kernel vs plain: "
+                      f"{json.dumps(stats)}")
+            del calls
+        del scene
+
+    cfg = bench.PHYSICS
+    scene = bench._demo(cfg, dev)
+    state, params = build_physics_demo(scene)
+    seen = []
+    build_physics_frame_step(
+        scene, cfg, params,
+        lambda s, c, count_rays: seen.append(s) or (None, None))(
+            state, torch.zeros(3, dtype=cfg.dtype, device=dev))
+    same("physics frame after its first step", *demo, seen[0], cfg)
+
+    t = first["pathtrace"]
+    seed = bench.bench_seed(t)
+    for cfg in (bench.PATHTRACE, bench.PATHTRACE_TIER):
+        stats = pathtrace_exact(
+            bench.posed(bench._demo(cfg, dev), cfg, t),
+            default_area_lights(cfg, dev), cfg, seed, label="bench")
+        print(f"phase BN [{card}]: path tracer t={t} seed {seed} "
+              f"{size(cfg)}, kernel vs plain: {json.dumps(stats)}")
+    return {fn.__name__: fn.launches - before[fn.__name__]
+            for pair in bench.COUNTERS for fn in pair}
+
+
+def bench_phase(card: str, dev) -> dict:
+    """Phase BN: the bench's kernels against their plain versions at its
+    shapes (``bench_checks``), then every tier of ttrt_torch.bench once
+    (``run(repeats=1)``, which sets the launch counts to 0 first); returns
+    the bench's kernel launches by kernels-line entry."""
+    from ttrt_torch import bench
+
+    t0 = time.perf_counter()
+    checked = bench_checks(card, dev)
+    print(f"phase BN [{card}]: the bench's shapes, every kernel equal to "
+          f"its plain version bit for bit, in "
+          f"{time.perf_counter() - t0:.1f} s; these checks' own launches "
+          f"(not counted below): {json.dumps(checked)}")
+    t0 = time.perf_counter()
+    line, failed = bench.run(repeats=1)
+    wall = time.perf_counter() - t0
+    print(f"phase BN: the bench's line {json.dumps(line)}")
+    errors = {k: v for k, v in line.items() if k.endswith("_error")}
+    assert not failed and not errors, errors
+    assert not bench.bad_keys(line), bench.bad_keys(line)
+    launches = line["launches"]
+    for kernel, plain in bench.COUNTERS:
+        assert launches[kernel.__name__] > 0, launches
+        assert launches[plain.__name__] == 0, launches
+    print(f"phase BN [{card}]: python -m ttrt_torch.bench's tiers, one run "
+          f"each (repeats=1), in {wall:.1f} s: every key of LINE_KEYS "
+          f"finite and > 0, no error; launches, the counts set to 0 before "
+          f"and read after, {json.dumps(launches)}: every kernel's > 0, "
+          f"every plain version's 0")
+    return {entry: launches[name] for entry, name in BENCH_ENTRIES.items()}
 
 
 def scene_phases(card: str, dev, full) -> list:
@@ -3089,6 +3201,7 @@ def scene_phases(card: str, dev, full) -> list:
     import torch
 
     from ttrt_torch import app, assets
+    from ttrt_torch.bench import _cuda_kernels, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import pathtrace, render
     from ttrt_torch.physics import demo, world as pworld

@@ -79,6 +79,17 @@ def trace_ray_mesh(scene: MeshScene, o: Vec3, d: Vec3, *,
     return _finish_hit(scene, o, d, gh, sample_sky, bilinear)
 
 
+def trace_ray_mesh_dense(scene: MeshScene, o: Vec3, d: Vec3, *,
+                         sample_sky: bool = True,
+                         bilinear: bool = False) -> Hit:
+    """``trace_ray_mesh`` through the dense tester on the rays' device,
+    whatever grid or pack the scene carries: the JAX package's trace of a
+    pack-less scene on an accelerator, which the bench times as its
+    ``mrays_10k_dense_corrected``."""
+    gh = dense_nearest(scene.spheres, scene.triangles, o, d)
+    return _finish_hit(scene, o, d, gh, sample_sky, bilinear)
+
+
 def trace_ray_mesh_brute(scene: MeshScene, o: Vec3, d: Vec3, *,
                          sample_sky: bool = True,
                          bilinear: bool = False) -> Hit:
