@@ -30,7 +30,7 @@ from ttrt_torch.config import RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import pathtrace, render
 from ttrt_torch.utils import count_bits
-from ttrt_torch.utils.profiling import TRACE_FILE, FrameMeter, StageTimers
+from ttrt_torch.utils.profiling import TRACE_FILE, StageTimers
 
 torch.set_num_threads(1)  # the test workers share the cores
 
@@ -152,26 +152,26 @@ def test_mesh_forces_batch_1_and_pathtrace_never_batches(monkeypatch,
 
 
 def test_profile_writes_a_trace_and_the_meter_counts_rays(tmp_path):
-    """``--profile``'s trace file; ``FrameMeter``'s Mray/s and
-    ``StageTimers.record`` (tests/test_profiling.py's checks)."""
-    meter = FrameMeter(alpha=0.5)
-    meter.update(0.02, rays=1_000_000).update(0.02, rays=1_000_000)
-    assert abs(meter.fps - 50.0) < 1e-6 and abs(meter.mrays - 50.0) < 1e-6
-    assert meter.hud() == "50.00 fps  50 Mray/s"
-    assert FrameMeter().update(0.1).hud() == "10.00 fps"
-    timers = StageTimers()
-    timers.record("copy", 0.002)
-    assert timers.summary()["copy"]["n"] == 1
-    assert abs(timers.summary()["copy"]["mean_ms"] - 2.0) < 1e-9
+    """``--profile``'s trace file: the frame steps' spans (``pose``,
+    ``write``: ``StageTimers`` marks each while the profiler runs) beside
+    the ``aten::`` ops, on one timeline."""
     cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2,
                        frame_rate=1e9)
+    timers = StageTimers()
     app.run_animation(cfg, "colors", max_frames=2, interactive=False,
-                      device="cpu", stream=io.BytesIO(),
+                      device="cpu", stream=io.BytesIO(), timers=timers,
                       profile_dir=str(tmp_path / "prof"))
+    assert timers.summary()["pose"]["n"] == 2
     trace = json.loads((tmp_path / "prof" / TRACE_FILE).read_text())
-    names = {e.get("name", "") for e in trace["traceEvents"]}
-    assert any("render_frame_plain" in n or n.startswith("aten::")
-               for n in names)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    names = {e.get("name", "") for e in events}
+    assert {"pose", "write", "render+copy"} <= names
+    assert any(n.startswith("aten::") for n in names)
+    # the spans and the ops they run share one clock
+    pose = [e for e in events if e["name"] == "pose"]
+    ops = [e for e in events if e["name"].startswith("aten::")]
+    assert any(p["ts"] <= o["ts"] <= p["ts"] + p["dur"]
+               for p in pose for o in ops)
 
 
 def test_debug_nans_raises_on_a_non_finite_frame(monkeypatch):

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ttrt_torch import assets, native
+from ttrt_torch import IMPORTED_AT, assets, native
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import mesh_fused, pathtrace, render
@@ -71,7 +71,9 @@ from ttrt_torch.term.display import (KeyboardInput, SigintFlag,
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
                                      encode_ansi_host, encode_rgb_frame)
 from ttrt_torch.utils.logging import log
-from ttrt_torch.utils.profiling import FrameMeter, StageTimers, profile_trace
+from ttrt_torch.utils.profiling import (SETUP, StageTimers, note_import,
+                                        profile_trace, recording, span,
+                                        touch_device)
 
 CAMERA_MOVE_SPEED = 0.1  # meters per keypress (reference stub's constant)
 _KEY_MOVES = {"up": (1, 1.0), "down": (1, -1.0), "left": (0, -1.0),
@@ -193,14 +195,17 @@ def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
     """The scene of ``--scene``: the reference's demo scene, or the
     many-object scene (``n_spheres`` random spheres over a triangle-mesh
     floor, with its cluster pack), in the config's dtype."""
-    skybox = assets.load_skybox(skybox_name, device=device)
-    if kind == "many":
-        return many_sphere_scene(skybox, n_spheres, cfg.width, cfg.height,
-                                 dtype=cfg.dtype, device=device)
-    if kind != "demo":
-        raise ConfigError(f"unknown scene {kind!r}")
-    return demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
-                      device=device)
+    touch_device(device)
+    with SETUP.setup_span("scene"):
+        skybox = assets.load_skybox(skybox_name, device=device)
+        if kind == "many":
+            return many_sphere_scene(skybox, n_spheres, cfg.width,
+                                     cfg.height, dtype=cfg.dtype,
+                                     device=device)
+        if kind != "demo":
+            raise ConfigError(f"unknown scene {kind!r}")
+        return demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
+                          device=device)
 
 
 def _pick(scene, cfg: RenderConfig, renderer: str, mesh):
@@ -265,6 +270,15 @@ def _encoder(cfg: RenderConfig, encode: str, device, mesh):
     return lambda fb: encode_ansi_frame(fb, template)
 
 
+def _posed(scene, cfg: RenderConfig, t: float, cam_offset: torch.Tensor,
+           device):
+    """``scene`` seen from the orbit camera at scene time ``t``, moved by
+    ``cam_offset``."""
+    frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
+    return scene.with_camera_frame(
+        frame._replace(origin=frame.origin + cam_offset))
+
+
 def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
                      renderer: str = "auto", mesh=None,
                      debug_nans: bool = False):
@@ -283,12 +297,12 @@ def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
     check = _finite_check(debug_nans)
 
     def frame_step(t: float, cam_offset: torch.Tensor):
-        frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-        frame = frame._replace(origin=frame.origin + cam_offset)
-        fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
-                          count_rays=False)
+        with span("pose"):
+            s = _posed(scene, cfg, t, cam_offset, device)
+        fb, _ = render_fn(s, cfg, count_rays=False)
         check(fb, t)
-        return enc(fb)
+        with span("quantize"):
+            return enc(fb)
 
     return frame_step
 
@@ -312,12 +326,12 @@ def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
                           dtype=torch.uint8, device=device)
         ts = torch.tensor(t0, dtype=cfg.dtype) + step
         for k, t in enumerate(ts.tolist()):
-            frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-            frame = frame._replace(origin=frame.origin + cam_offset)
-            fb, _ = render_fn(scene.with_camera_frame(frame), cfg,
-                              count_rays=False)
+            with span("pose"):
+                s = _posed(scene, cfg, t, cam_offset, device)
+            fb, _ = render_fn(s, cfg, count_rays=False)
             check(fb, t)
-            out[k] = encode_rgb_frame(fb)
+            with span("quantize"):
+                out[k] = encode_rgb_frame(fb)
         return out
 
     return batch_step
@@ -351,9 +365,8 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
     check = _finite_check(debug_nans)
 
     def frame_step(t: float, cam_offset: torch.Tensor):
-        frame = orbit_camera_frame(t, dtype=cfg.dtype, device=device)
-        frame = frame._replace(origin=frame.origin + cam_offset)
-        s = scene.with_camera_frame(frame)
+        with span("pose"):
+            s = _posed(scene, cfg, t, cam_offset, device)
         fseed = pathtrace.frame_seed(seed, t)
         if mesh is not None and use_kernel:
             fb = sharding.pathtrace_frame_sharded_kernel(s, lights, cfg,
@@ -368,7 +381,8 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
             fb = estimator.pathtrace_frame(
                 s, lights, cfg, _frame_generator(fseed, device))
         check(fb, t)
-        return enc(fb)
+        with span("quantize"):
+            return enc(fb)
 
     return frame_step
 
@@ -400,7 +414,13 @@ class FrameSync:
 
 
 def _to_host(buf: torch.Tensor) -> np.ndarray:
-    return buf.cpu().numpy()
+    """The frame's bytes on the host: a wait for the buffer's stream (none
+    for a CPU tensor), then the copy, each its own span."""
+    with span("device_wait"):
+        if buf.is_cuda:
+            torch.cuda.current_stream(buf.device).synchronize()
+    with span("copy"):
+        return buf.cpu().numpy()
 
 
 def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
@@ -441,6 +461,7 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     forces 1 and ``pathtrace`` never batches. ``profile_dir`` writes a
     torch.profiler trace of the loop there (``profile_trace``);
     ``debug_nans`` checks every frame (``_finite_check``)."""
+    touch_device(device)
     encode = resolve_encode(encode)
     if mesh_spec and batch > 1:
         log("--mesh: forcing --batch 1 (the batched loop renders on one "
@@ -485,10 +506,10 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
              encode, stats, pipeline, device, stream, timers) -> float:
     """``run_animation``'s loop on the rank that writes the frames; with a
     ``FrameSync`` it broadcasts each frame's time and camera offset to the
-    other ranks first."""
+    other ranks first. ``timers`` records the frame steps' spans for the
+    loop's lifetime (``recording``)."""
     cam_offset = np.zeros(3, np.float64)
     offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
-    meter = FrameMeter()
     timers = timers if timers is not None else StageTimers()
     fps = 0.0
     n = 0
@@ -500,18 +521,26 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
         if pipeline > 0 else None
     )
     pending: collections.deque = collections.deque()
+    first_call = None  # the process's first frame step, until its write
 
     def emit(buf: np.ndarray) -> None:
-        nonlocal n
+        nonlocal n, first_call
         with timers.stage("encode+write"):
-            disp.write_frame(buf if host_enc is None else host_enc(buf))
+            if host_enc is not None:
+                with span("encode"):
+                    buf = host_enc(buf)
+            with span("write"):
+                disp.write_frame(buf)
+        if first_call is not None:
+            SETUP.mark("first_frame", first_call)
+            first_call = None
         with timers.stage("pace"):
             pace()
         n += 1
 
     try:
-        with SigintFlag() as sig, TerminalDisplay(stream) as disp, \
-                KeyboardInput() as keys:
+        with recording(timers), SigintFlag() as sig, \
+                TerminalDisplay(stream) as disp, KeyboardInput() as keys:
             issued = 0
             while not sig.received and (
                 max_frames is None or issued < max_frames
@@ -527,6 +556,8 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
                         offset_dev = torch.as_tensor(
                             cam_offset, dtype=cfg.dtype, device=device)
                 issued += 1
+                if issued == 1:
+                    first_call = SETUP.start("first_frame")
                 t = t0 - start
                 if sync is not None:
                     sync.lead(t, cam_offset)
@@ -543,7 +574,6 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
                 emit(buf)
                 dt_frame = max(time.monotonic() - t0, 1e-9)
                 fps = 1.0 / dt_frame
-                meter.update(dt_frame)
                 disp.write_fps(fps)
             while pending:  # drain in-flight frames
                 emit(pending.popleft().result())
@@ -552,8 +582,13 @@ def _animate(cfg: RenderConfig, frame_step, sync, max_frames, interactive,
             pool.shutdown(wait=True)
     if stats:
         timers.log_summary()
-        log(f"ema: {meter.hud()}  frames: {n}")
+        log(f"frames: {n}  mean {_mean_fps(n, start):.2f} fps")
     return fps
+
+
+def _mean_fps(frames: int, start: float) -> float:
+    """Frames over the loop's time from ``start`` (``time.monotonic``)."""
+    return frames / max(time.monotonic() - start, 1e-9)
 
 
 class _Pacer:
@@ -593,19 +628,22 @@ def _run_animation_batched(cfg: RenderConfig, scene, batch: int,
     pending: collections.deque = collections.deque()
     cam_offset = np.zeros(3, np.float64)
     offset_dev = torch.zeros(3, dtype=cfg.dtype, device=device)
-    meter = FrameMeter()
     timers = timers if timers is not None else StageTimers()
     pace = _Pacer(cfg.frame_duration)
     fps = 0.0
     n = 0
     issued = 0
+    start = time.monotonic()
+    first_call = None  # the process's first batch step, until its write
     try:
-        with SigintFlag() as sig, TerminalDisplay(stream) as disp, \
-                KeyboardInput() as keys:
+        with recording(timers), SigintFlag() as sig, \
+                TerminalDisplay(stream) as disp, KeyboardInput() as keys:
             while not sig.received and (max_frames is None
                                         or n < max_frames):
                 while len(pending) < depth and (
                         max_frames is None or issued < max_frames + batch):
+                    if issued == 0:
+                        first_call = SETUP.start("first_frame")
                     pending.append(pool.submit(
                         _to_host,
                         batch_step(issued * cfg.frame_duration, offset_dev)))
@@ -628,19 +666,25 @@ def _run_animation_batched(cfg: RenderConfig, scene, batch: int,
                             offset_dev = torch.as_tensor(
                                 cam_offset, dtype=cfg.dtype, device=device)
                     with timers.stage("encode+write"):
-                        disp.write_frame(host_enc(rgb))
+                        with span("encode"):
+                            buf = host_enc(rgb)
+                        with span("write"):
+                            disp.write_frame(buf)
+                    if first_call is not None:
+                        SETUP.mark("first_frame", first_call)
+                        first_call = None
                     with timers.stage("pace"):
                         pace()
                     n += 1
                     dt_frame = max(time.monotonic() - t0, 1e-9)
                     fps = 1.0 / dt_frame
-                    meter.update(dt_frame)
                     disp.write_fps(fps)
     finally:
         pool.shutdown(wait=True)
     if stats:
         timers.log_summary()
-        log(f"ema: {meter.hud()}  frames: {n}  batch: {batch}")
+        log(f"frames: {n}  batch: {batch}  mean {_mean_fps(n, start):.2f} "
+            "fps")
     return fps
 
 
@@ -678,7 +722,8 @@ def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
         nonlocal state
         state, fb, _ = step(state, cam_offset)
         check(fb, state.t)
-        return enc(fb)
+        with span("quantize"):
+            return enc(fb)
 
     try:
         return _animate(cfg, frame_step, None, max_frames, interactive,
@@ -712,6 +757,7 @@ def render_still(cfg: RenderConfig, skybox_name: str, t: float,
     None bands an eager frame of more than ``AUTO_BAND_RAYS`` primary rays
     by the largest divisor of the height up to 16, and leaves a kernel's
     frame whole. A mesh and ``renderer="kernel"`` refuse bands."""
+    touch_device(device)
     if renderer == "kernel" and n_bands not in (None, 1):
         raise ConfigError("--bands renders through the eager integrator; "
                           "--renderer kernel renders the whole frame (drop "
@@ -956,6 +1002,8 @@ def _dispatch(args, cfg: RenderConfig) -> int:
                   profile_dir=args.profile, debug_nans=args.debug_nans)
     return 0
 
+
+note_import(IMPORTED_AT)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ttrt_torch.scene import Skybox
+from ttrt_torch.utils.profiling import touch_device
 
 FACE_NAMES = ("+X", "-X", "+Y", "-Y", "+Z", "-Z")  # TerminalRayTracer.c:390
 
@@ -117,6 +118,7 @@ def load_skybox(name_or_dir: str, *, device,
     """Load a named skybox (``skybox/<name>/{+X,..}.ppm``,
     TerminalRayTracer.c:403) or a faces directory; falls back to a
     procedural build for the known debug names if no files exist."""
+    touch_device(device)
     candidates = [name_or_dir] + [
         os.path.join(d, name_or_dir) for d in search_dirs
     ]

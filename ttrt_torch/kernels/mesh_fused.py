@@ -38,6 +38,7 @@ from ttrt_torch.kernels.render import (_bounce_chain, _F32_EPSILON,
 from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.dense import (_tri_t, chunks, nearest_arrays,
                                    sphere_blocks)
+from ttrt_torch.utils.profiling import span
 from ttrt_torch.vec import Vec3
 
 
@@ -122,13 +123,15 @@ def render_band_mesh_fused_plain(
     render_band_mesh_fused_plain.launches += 1
     n_rows = cfg.height if n_rows is None else n_rows
     n_samples = cfg.rays_per_pixel if n_samples is None else n_samples
-    sph, tri = pack_rows(scene.clusters)
+    with span("pack"):
+        sph, tri = pack_rows(scene.clusters)
+        cam = pack_camera(scene.camera, torch.float32, row_offset,
+                          sample_offset)
+        dl_vals = _tuples(pack_dlights(scene.directional_lights,
+                                       torch.float32), DLIGHT_FLOATS)
+        pl_vals = _tuples(pack_plights(scene.point_lights, torch.float32),
+                          PLIGHT_FLOATS)
     n_sph = sph.shape[0]
-    cam = pack_camera(scene.camera, torch.float32, row_offset, sample_offset)
-    dl_vals = _tuples(pack_dlights(scene.directional_lights, torch.float32),
-                      DLIGHT_FLOATS)
-    pl_vals = _tuples(pack_plights(scene.point_lights, torch.float32),
-                      PLIGHT_FLOATS)
 
     def trace(ox, oy, oz, dx, dy, dz):
         gh = nearest_arrays(sph[:, :4], tri[:, :9], n_sph,
@@ -161,13 +164,15 @@ def render_band_mesh_fused_plain(
         return lambda lx, ly, lz, tmax: _shadow_blocked(
             sph, tri, px, py, pz, lx, ly, lz, tmax)
 
-    ox, oy, oz, dx, dy, dz = _gen_primary_rays(cam, cfg, n_rows, n_samples)
-    chain = _bounce_chain(
-        ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals, pl_vals,
-        cfg.bounce_limit, cfg.specular, cfg.energy_model == "subtract")
-    scale = 1.0 / cfg.rays_per_pixel if reduce == "avg" else 1.0
-    return _finish_frame(*chain, scene, cfg, n_rows, n_samples, scale,
-                         len(dl_vals) + len(pl_vals))
+    with span("launch"):
+        ox, oy, oz, dx, dy, dz = _gen_primary_rays(cam, cfg, n_rows,
+                                                   n_samples)
+        chain = _bounce_chain(
+            ox, oy, oz, dx, dy, dz, trace, shadow_test, dl_vals, pl_vals,
+            cfg.bounce_limit, cfg.specular, cfg.energy_model == "subtract")
+        scale = 1.0 / cfg.rays_per_pixel if reduce == "avg" else 1.0
+        return _finish_frame(*chain, scene, cfg, n_rows, n_samples, scale,
+                             len(dl_vals) + len(pl_vals))
 
 
 render_band_mesh_fused_plain.launches = 0
@@ -212,29 +217,33 @@ def render_band_mesh_fused_cuda(
     n_dl = scene.directional_lights.count
     n_pl = scene.point_lights.count
     tab = pack.tables
-    order = order_subclusters(pack, scene.camera.frame.origin)
-    cam = pack_camera(scene.camera, torch.float32, row_offset,
-                      sample_offset).contiguous()
-    dl = pack_dlights(scene.directional_lights, torch.float32).contiguous()
-    pl = pack_plights(scene.point_lights, torch.float32).contiguous()
-    texels = sky_table(scene.skybox, dev)
-    W = cfg.width
-    out = torch.empty((3, n_rows, W), dtype=torch.float32, device=dev)
-    counts = torch.empty((n_rows, W), dtype=torch.int32, device=dev)
-    lib = build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scale = 1.0 / cfg.rays_per_pixel if reduce == "avg" else 1.0
-    rc = lib.ttrt_mesh_fused(
-        cam.data_ptr(), dl.data_ptr(), n_dl, pl.data_ptr(), n_pl,
-        tab.sph.data_ptr(), tab.sph_mat.data_ptr(), tab.sph_spec.data_ptr(),
-        tab.sph_id.data_ptr(), tab.tri.data_ptr(), tab.tri_nrm.data_ptr(),
-        tab.tri_mat.data_ptr(), tab.tri_spec.data_ptr(),
-        tab.tri_id.data_ptr(), tab.qbox.data_ptr(), order.data_ptr(),
-        tab.kb_sph, tab.kb_tri, W, cfg.height, cfg.rays_per_pixel, n_rows,
-        n_samples, cfg.bounce_limit, int(cfg.specular),
-        int(cfg.energy_model == "subtract"),
-        sky_kind(scene.skybox), scene.skybox.dim, int(cfg.skybox_bilinear),
-        texels.data_ptr(), scale, out.data_ptr(), counts.data_ptr(), stream)
+    with span("pack"):
+        order = order_subclusters(pack, scene.camera.frame.origin)
+        cam = pack_camera(scene.camera, torch.float32, row_offset,
+                          sample_offset).contiguous()
+        dl = pack_dlights(scene.directional_lights,
+                          torch.float32).contiguous()
+        pl = pack_plights(scene.point_lights, torch.float32).contiguous()
+    with span("launch"):
+        texels = sky_table(scene.skybox, dev)
+        W = cfg.width
+        out = torch.empty((3, n_rows, W), dtype=torch.float32, device=dev)
+        counts = torch.empty((n_rows, W), dtype=torch.int32, device=dev)
+        lib = build.load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scale = 1.0 / cfg.rays_per_pixel if reduce == "avg" else 1.0
+        rc = lib.ttrt_mesh_fused(
+            cam.data_ptr(), dl.data_ptr(), n_dl, pl.data_ptr(), n_pl,
+            tab.sph.data_ptr(), tab.sph_mat.data_ptr(),
+            tab.sph_spec.data_ptr(), tab.sph_id.data_ptr(),
+            tab.tri.data_ptr(), tab.tri_nrm.data_ptr(),
+            tab.tri_mat.data_ptr(), tab.tri_spec.data_ptr(),
+            tab.tri_id.data_ptr(), tab.qbox.data_ptr(), order.data_ptr(),
+            tab.kb_sph, tab.kb_tri, W, cfg.height, cfg.rays_per_pixel,
+            n_rows, n_samples, cfg.bounce_limit, int(cfg.specular),
+            int(cfg.energy_model == "subtract"), sky_kind(scene.skybox),
+            scene.skybox.dim, int(cfg.skybox_bilinear), texels.data_ptr(),
+            scale, out.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused mesh kernel launch failed: CUDA error {rc}")
     render_band_mesh_fused_cuda.launches += 1

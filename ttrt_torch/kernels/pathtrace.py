@@ -51,6 +51,7 @@ from ttrt_torch.kernels.render import (PLANE_FLOATS, SKY_KINDS, SPHERE_FLOATS,
                                        RENDER_LAYOUT_KEYS, _trace, _tuples,
                                        pack_scene, sky_color)
 from ttrt_torch.scene import Scene
+from ttrt_torch.utils.profiling import span
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
 
 MASK32 = 0xFFFFFFFF
@@ -194,14 +195,22 @@ def _paths(scene: Scene, lights, cfg: RenderConfig, seed: int):
     the per-ray radiance (3 sample-major (N*H*W,) tensors) and the work,
     (nearest-hit traces, hits, unblocked NEE shadow rays) as a (3,) int64
     tensor."""
+    packed = pack_scene(scene, torch.float32)
+    return _packed_paths(scene, packed,
+                         pack_area_lights(lights).to(packed.cam.device), cfg,
+                         seed)
+
+
+def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
+                  seed: int):
+    """``_paths`` of ``scene`` packed (``pack_scene``) with its area lights
+    ``al`` (``pack_area_lights``, on the scene's device)."""
     W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
     seed &= MASK32
-    packed = pack_scene(scene, torch.float32)
     cam = packed.cam
     sph_vals = _tuples(packed.spheres, SPHERE_FLOATS)
     plane_vals = tuple(packed.plane[i] for i in range(PLANE_FLOATS))
-    al_vals = _tuples(pack_area_lights(lights).to(cam.device),
-                      AREA_LIGHT_FLOATS)
+    al_vals = _tuples(al, AREA_LIGHT_FLOATS)
 
     # primary rays (pathtrace_pallas.py:144-168): the demo kernel's camera
     # math with a random jitter in [0, pixel)
@@ -319,9 +328,13 @@ def pathtrace_frame_plain(scene: Scene, lights, cfg: RenderConfig,
     check_supported(scene, lights, cfg)
     _check_reduce(reduce)
     pathtrace_frame_plain.launches += 1
-    color, work = _paths(scene, lights, cfg, seed)
-    W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
-    fb = Vec3(*(_reduce_samples(c, N, H, W, reduce) for c in color))
+    with span("pack"):
+        packed = pack_scene(scene, torch.float32)
+        al = pack_area_lights(lights).to(packed.cam.device)
+    with span("launch"):
+        color, work = _packed_paths(scene, packed, al, cfg, seed)
+        W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
+        fb = Vec3(*(_reduce_samples(c, N, H, W, reduce) for c in color))
     return fb, work if count_rays else None
 
 
@@ -355,28 +368,31 @@ def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
 
     check_supported(scene, lights, cfg)
     _check_reduce(reduce)
-    packed = pack_scene(scene, torch.float32)
-    al = pack_area_lights(lights)
-    if al.device != packed.cam.device:
-        raise ValueError("the area lights and the scene must be on one "
-                         f"device, got {al.device} and {packed.cam.device}")
-    buf = torch.cat([packed.cam, packed.spheres, packed.plane,
-                     al]).contiguous()
+    with span("pack"):
+        packed = pack_scene(scene, torch.float32)
+        al = pack_area_lights(lights)
+        if al.device != packed.cam.device:
+            raise ValueError(
+                "the area lights and the scene must be on one device, got "
+                f"{al.device} and {packed.cam.device}")
+        buf = torch.cat([packed.cam, packed.spheres, packed.plane,
+                         al]).contiguous()
     if buf.device.type != "cuda":
         raise ValueError(
             f"pathtrace_frame_cuda needs CUDA tensors, got {buf.device}")
     n_sph, n_al = scene.spheres.count, lights.count
     H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-    lib = build.load()
-    out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
-    counts = torch.empty((2, H, W), dtype=torch.int32, device=buf.device)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = lib.ttrt_pathtrace(
-        buf.data_ptr(), n_sph, n_al, W, H, N, cfg.bounce_limit,
-        SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-        int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
-        out.data_ptr(), counts.data_ptr(), stream,
-    )
+    with span("launch"):
+        lib = build.load()
+        out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
+        counts = torch.empty((2, H, W), dtype=torch.int32, device=buf.device)
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = lib.ttrt_pathtrace(
+            buf.data_ptr(), n_sph, n_al, W, H, N, cfg.bounce_limit,
+            SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
+            int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
+            out.data_ptr(), counts.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"path-tracing kernel launch failed: CUDA error {rc}")

@@ -63,6 +63,7 @@ import torch
 from ttrt_torch.config import ConfigError, RenderConfig, constants
 from ttrt_torch.render.skybox import CUBEMAP_AXES, U_AXIS, V_AXIS, _unpack
 from ttrt_torch.scene import Scene
+from ttrt_torch.utils.profiling import span
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
 
 CAM_FLOATS = 17
@@ -787,8 +788,14 @@ def _demo_chain(scene: Scene, cfg: RenderConfig, shade: bool = True,
     ``_bounce_chain``, sample-major: returns its outputs and the scene's
     light count."""
     band = Band.whole(cfg) if band is None else band
-    packed = pack_scene(scene, torch.float32, band.row_offset,
-                        band.sample_offset)
+    return _packed_chain(pack_scene(scene, torch.float32, band.row_offset,
+                                    band.sample_offset), cfg, band, shade)
+
+
+def _packed_chain(packed: PackedScene, cfg: RenderConfig, band: Band,
+                  shade: bool = True):
+    """``_demo_chain`` of the scene packed for ``band`` (its camera row
+    carrying the band's offsets)."""
     sph_vals = _tuples(packed.spheres, SPHERE_FLOATS)
     plane_vals = tuple(packed.plane[i] for i in range(PLANE_FLOATS))
     dl_vals = _tuples(packed.dlights, DLIGHT_FLOATS)
@@ -818,9 +825,13 @@ def _demo_frame(scene: Scene, cfg: RenderConfig,
     framebuffer, its trace count and the per-ray packed counts (bounces |
     hits << 5)."""
     band = Band.whole(cfg) if band is None else band
-    chain, n_lights = _demo_chain(scene, cfg, band=band)
-    fb, traces = _finish_frame(*chain, scene, cfg, band.n_rows,
-                               band.n_samples, band.scale(cfg), n_lights)
+    with span("pack"):
+        packed = pack_scene(scene, torch.float32, band.row_offset,
+                            band.sample_offset)
+    with span("launch"):
+        chain, n_lights = _packed_chain(packed, cfg, band)
+        fb, traces = _finish_frame(*chain, scene, cfg, band.n_rows,
+                                   band.n_samples, band.scale(cfg), n_lights)
     return fb, traces, chain[5]
 
 
@@ -948,23 +959,25 @@ def _launch_render(scene: Scene, cfg: RenderConfig, name: str,
     from ttrt_torch.kernels import build
 
     band = Band.whole(cfg) if band is None else band
-    buf, n_sph, n_dl, n_pl = _scene_buffer(scene, name, band.row_offset,
-                                           band.sample_offset)
-    texels = sky_table(scene.skybox, buf.device)
-    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-    out = torch.empty((3, band.n_rows, W), dtype=torch.float32,
-                      device=buf.device)
-    counts = torch.empty((band.n_rows, W), dtype=torch.int32,
-                         device=buf.device)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = build.load().ttrt_render(
-        buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, band.n_rows,
-        band.n_samples, cfg.bounce_limit, int(cfg.specular),
-        int(cfg.energy_model == "subtract"), sky_kind(scene.skybox),
-        scene.skybox.dim, int(cfg.skybox_bilinear), texels.data_ptr(),
-        band.scale(cfg), int(pixel_rate), out.data_ptr(), counts.data_ptr(),
-        stream,
-    )
+    with span("pack"):
+        buf, n_sph, n_dl, n_pl = _scene_buffer(scene, name, band.row_offset,
+                                               band.sample_offset)
+    with span("launch"):
+        texels = sky_table(scene.skybox, buf.device)
+        H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
+        out = torch.empty((3, band.n_rows, W), dtype=torch.float32,
+                          device=buf.device)
+        counts = torch.empty((band.n_rows, W), dtype=torch.int32,
+                             device=buf.device)
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = build.load().ttrt_render(
+            buf.data_ptr(), n_sph, n_dl, n_pl, W, H, N, band.n_rows,
+            band.n_samples, cfg.bounce_limit, int(cfg.specular),
+            int(cfg.energy_model == "subtract"), sky_kind(scene.skybox),
+            scene.skybox.dim, int(cfg.skybox_bilinear), texels.data_ptr(),
+            band.scale(cfg), int(pixel_rate), out.data_ptr(),
+            counts.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
     return out, counts

@@ -29,6 +29,7 @@ from ttrt_torch.render.skybox import sample_skybox
 from ttrt_torch.scene import (HIT_NONE, HIT_SPHERE, HIT_TRIANGLE, Camera,
                               DirectionalLights, Materials, PointLights,
                               Skybox, Spheres)
+from ttrt_torch.utils.profiling import SETUP, touch_device
 from ttrt_torch.vec import Vec3, scalar_like
 
 
@@ -175,40 +176,42 @@ def many_sphere_scene(skybox: Skybox, n_spheres: int = 10_000,
     (``grid_resolution`` cells an axis, by default ``build_grid``'s rule)
     and its cluster pack. The numpy draws from ``default_rng(seed)`` are
     the JAX package's, so both packages build the same scene and grid."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    centers = np.stack([rng.uniform(-15.0, 15.0, n_spheres),
-                        rng.uniform(-1.5, 8.0, n_spheres),
-                        rng.uniform(-15.0, 15.0, n_spheres)],
-                       axis=-1).astype(f32)
-    radii = rng.uniform(0.05, 0.25, n_spheres).astype(f32)
-    colors = rng.uniform(0.1, 1.0, (n_spheres, 3)).astype(f32)
-    refl = rng.uniform(0.0, 0.9, n_spheres).astype(f32)
-    spec = np.full(n_spheres, 100.0, f32)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,  # noqa: E731
-                                  device=device)
-    spheres = Spheres(
-        center=Vec3(*(t(centers[:, i]) for i in range(3))),
-        radius=t(radii),
-        material=Materials(Vec3(*(t(colors[:, i]) for i in range(3))),
-                           t(refl), t(spec)),
-    )
-    tris_np = floor_mesh_np(y=-2.0, half_extent=20.0, cells=floor_cells)
-    tris = Triangles.from_np(tris_np, dtype=dtype, device=device)
-    row = lambda v: Vec3.from_array(t(np.asarray([v])))  # noqa: E731
-    return MeshScene(
-        spheres=spheres,
-        triangles=tris,
-        grid=build_grid(spheres, tris, grid_resolution, dtype=dtype,
-                        device=device, np_spheres=(centers, radii),
-                        np_tris=tris_np),
-        clusters=pack_clusters(spheres, tris),
-        directional_lights=DirectionalLights(
-            direction=row([-1.0, -1.0, -1.0]), color=row([1.0, 1.0, 1.0])),
-        point_lights=PointLights(
-            position=row([0.0, 4.0, 0.0]), color=row([1.0, 1.0, 1.0]),
-            intensity=t(np.asarray([10.0]))),
-        camera=Camera.default(width_px, height_px, dtype=dtype,
-                              device=device),
-        skybox=skybox,
-    )
+    touch_device(device)
+    with SETUP.setup_span("scene"):
+        rng = np.random.default_rng(seed)
+        f32 = np.float32
+        centers = np.stack([rng.uniform(-15.0, 15.0, n_spheres),
+                            rng.uniform(-1.5, 8.0, n_spheres),
+                            rng.uniform(-15.0, 15.0, n_spheres)],
+                           axis=-1).astype(f32)
+        radii = rng.uniform(0.05, 0.25, n_spheres).astype(f32)
+        colors = rng.uniform(0.1, 1.0, (n_spheres, 3)).astype(f32)
+        refl = rng.uniform(0.0, 0.9, n_spheres).astype(f32)
+        spec = np.full(n_spheres, 100.0, f32)
+        t = lambda a: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(a), dtype=dtype, device=device)
+        spheres = Spheres(
+            center=Vec3(*(t(centers[:, i]) for i in range(3))),
+            radius=t(radii),
+            material=Materials(Vec3(*(t(colors[:, i]) for i in range(3))),
+                               t(refl), t(spec)),
+        )
+        tris_np = floor_mesh_np(y=-2.0, half_extent=20.0, cells=floor_cells)
+        tris = Triangles.from_np(tris_np, dtype=dtype, device=device)
+        row = lambda v: Vec3.from_array(t(np.asarray([v])))  # noqa: E731
+        return MeshScene(
+            spheres=spheres,
+            triangles=tris,
+            grid=build_grid(spheres, tris, grid_resolution, dtype=dtype,
+                            device=device, np_spheres=(centers, radii),
+                            np_tris=tris_np),
+            clusters=pack_clusters(spheres, tris),
+            directional_lights=DirectionalLights(
+                direction=row([-1.0, -1.0, -1.0]), color=row([1.0, 1.0, 1.0])),
+            point_lights=PointLights(
+                position=row([0.0, 4.0, 0.0]), color=row([1.0, 1.0, 1.0]),
+                intensity=t(np.asarray([10.0]))),
+            camera=Camera.default(width_px, height_px, dtype=dtype,
+                                  device=device),
+            skybox=skybox,
+        )

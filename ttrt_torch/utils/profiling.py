@@ -1,12 +1,19 @@
-"""Frame metrics (port of ``ttrt.utils.profiling``).
+"""Frame metrics and spans (port of ``ttrt.utils.profiling``).
 
 The reference's only instrumentation is the fps printout
 (TerminalRayTracer.c:1362-1365). Here:
 
   - StageTimers: per-stage wall-time accumulators (render+copy,
-    encode+write, pace) with p50/p95 summaries, logged to stderr; stdout IS
-    the framebuffer.
-  - FrameMeter: fps and Mray/s exponential moving averages for the HUD.
+    encode+write, pace, and the frame spans below) with p50/p95
+    summaries, logged to stderr; stdout IS the framebuffer. While a
+    torch.profiler runs, each stage is also a ``record_function`` range of
+    its name, so a Chrome trace shows it on the kernels' timeline.
+  - span(name): the stage ``name`` of the timers that the running frame
+    loop installed (``recording``), or one shared no-op context while no
+    loop records. The frame steps open ``pose``, ``pack``, ``launch``,
+    ``quantize``, ``device_wait``, ``copy``, ``encode`` and ``write``.
+  - SETUP: the process's set-up, phase by phase, from its start to the
+    end of its first frame's write (``SetupTimers``).
   - profile_trace: a torch.profiler trace of CPU and CUDA activity around
     a block, written as a Chrome trace (--profile DIR in the CLI).
 """
@@ -17,11 +24,16 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from ttrt_torch.utils.logging import log
+
+# the module whose flag torch.profiler sets while it records
+_autograd_profiler = torch.autograd.profiler
+
+NO_SPAN = contextlib.nullcontext()
 
 
 class StageTimers:
@@ -33,19 +45,16 @@ class StageTimers:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
+        marker = (torch.profiler.record_function(name)
+                  if _autograd_profiler._is_profiler_enabled else NO_SPAN)
         t0 = time.perf_counter()
         try:
-            yield
+            with marker:
+                yield
         finally:
             s = self._samples[name]
             if len(s) < self._max:
                 s.append(time.perf_counter() - t0)
-
-    def record(self, name: str, seconds: float) -> None:
-        """Add one sample measured elsewhere (a device time, say)."""
-        s = self._samples[name]
-        if len(s) < self._max:
-            s.append(seconds)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         out = {}
@@ -72,33 +81,139 @@ class StageTimers:
             )
 
 
-class FrameMeter:
-    """EMA fps and ray-throughput meter for the HUD line."""
+# the timers of the frame loop that is running, read by span(); a module
+# global, not a thread-local: the pipelined copies run in pool threads
+_recorder: Optional[StageTimers] = None
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.fps: Optional[float] = None
-        self.mrays: Optional[float] = None
 
-    def update(self, frame_seconds: float, rays: Optional[int] = None):
-        fps = 1.0 / max(frame_seconds, 1e-9)
-        self.fps = fps if self.fps is None else (
-            self.alpha * fps + (1 - self.alpha) * self.fps
-        )
-        if rays is not None:
-            mr = rays / max(frame_seconds, 1e-9) / 1e6
-            self.mrays = mr if self.mrays is None else (
-                self.alpha * mr + (1 - self.alpha) * self.mrays
-            )
-        return self
+def span(name: str):
+    """The stage ``name`` of the running loop's timers; without a loop
+    recording, one shared no-op context (no clock read, no allocation)."""
+    rec = _recorder
+    return NO_SPAN if rec is None else rec.stage(name)
 
-    def hud(self) -> str:
-        parts = []
-        if self.fps is not None:
-            parts.append(f"{self.fps:.02f} fps")
-        if self.mrays is not None:
-            parts.append(f"{self.mrays:.0f} Mray/s")
-        return "  ".join(parts)
+
+@contextlib.contextmanager
+def recording(timers) -> Iterator[None]:
+    """Make ``timers`` (anything with ``stage(name)``) the recorder of
+    ``span`` for the block, then restore the one installed before."""
+    global _recorder
+    saved, _recorder = _recorder, timers
+    try:
+        yield
+    finally:
+        _recorder = saved
+
+
+# set-up's phases, in the order a process meets them; 'other' is what they
+# leave of the time from the process's start to its first frame's write
+PHASES = ("before_program", "import", "device", "scene", "first_frame")
+
+
+class SetupTimers(StageTimers):
+    """The process's set-up: each phase timed the first time it occurs,
+    as an interval on the host clock (``time.perf_counter``).
+
+    - ``before_program``: the process's start (``process_start``) to the
+      first line of ``ttrt_torch/__init__.py``: the interpreter, and
+      whatever imported torch first;
+    - ``import``: that line to the end of ``ttrt_torch.app``'s module body;
+    - ``device``: the program's first touch of a device (``touch_device``):
+      the CUDA context's creation; empty where the context was there or the
+      device is the CPU;
+    - ``scene``: the first scene build;
+    - ``first_frame``: the process's first frame-step call to the end of
+      that frame's write."""
+
+    def __init__(self):
+        super().__init__()
+        # name -> (start, end); end None while its setup_span is open
+        self.spans: Dict[str, Tuple[float, Optional[float]]] = {}
+
+    def start(self, name: str) -> Optional[float]:
+        """The host clock now, or None once ``name`` is recorded: the start
+        to hand ``mark`` at the end of a phase that no block encloses."""
+        return None if name in self.spans else time.perf_counter()
+
+    def mark(self, name: str, start: float, end: Optional[float] = None
+             ) -> None:
+        """Record the phase ``name`` as [start, end) (end: now), unless it
+        was recorded before."""
+        if name not in self.spans:
+            end = time.perf_counter() if end is None else end
+            self.spans[name] = (start, end)
+            self._samples[name].append(end - start)
+
+    def setup_span(self, name: str):
+        """A context that records the phase ``name`` over its block the
+        first time it occurs; the shared no-op after, and inside it."""
+        return NO_SPAN if name in self.spans else self._span(name)
+
+    @contextlib.contextmanager
+    def _span(self, name: str) -> Iterator[None]:
+        self.spans[name] = (time.perf_counter(), None)
+        try:
+            yield
+        finally:
+            self.mark(name, self.spans.pop(name)[0])
+
+    def phases(self) -> Dict[str, float]:
+        """Seconds of each phase that ended by the end of the first frame's
+        write, and 'other': the rest of the time from the earliest phase's
+        start to that end. Empty before the first frame's write."""
+        if "first_frame" not in self.spans:
+            return {}
+        end = self.spans["first_frame"][1]
+        spans = {n: se for n, se in self.spans.items()
+                 if se[1] is not None and se[1] <= end}
+        out = {n: e - s for n, (s, e) in spans.items()}
+        out["other"] = (end - min(s for s, _ in spans.values())
+                        - sum(out.values()))
+        return out
+
+
+SETUP = SetupTimers()
+
+
+def process_start() -> Optional[float]:
+    """The process's start on the ``time.perf_counter`` clock, to the
+    kernel's 10-ms tick: ``/proc/self/stat``'s field 22 (ticks after boot)
+    against ``CLOCK_BOOTTIME``; None without ``/proc``."""
+    try:
+        with open("/proc/self/stat", "rb") as f:
+            stat = f.read()
+        # the fields after the command's ')' start at field 3
+        ticks = int(stat[stat.rindex(b")") + 2:].split()[19])
+        boot = time.clock_gettime(time.CLOCK_BOOTTIME)
+        hz = os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError, AttributeError):
+        return None
+    now = time.perf_counter()
+    return now - (boot - ticks / hz)
+
+
+def note_import(first_line: float) -> None:
+    """Record set-up's 'before_program' (where ``/proc`` gives the
+    process's start) and 'import' phases, the package's first line at
+    ``first_line``; called at the end of ``ttrt_torch.app``'s body."""
+    start = process_start()
+    if start is not None:
+        SETUP.mark("before_program", start, first_line)
+    SETUP.mark("import", first_line)
+
+
+def touch_device(device) -> None:
+    """Set-up's 'device' phase at the program's first touch of a device:
+    for a CUDA device whose runtime torch has not started, the runtime's
+    start and the context's creation (a memory query, which needs one); a
+    no-op once the phase is recorded."""
+    if "device" in SETUP.spans:
+        return
+    with SETUP.setup_span("device"):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_initialized():
+            torch.cuda.init()
+            torch.cuda.mem_get_info(dev)
 
 
 TRACE_FILE = "trace.json"
