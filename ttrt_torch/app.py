@@ -13,6 +13,10 @@ Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
     -> one device->host uint8 copy -> the host's ANSI expansion (the native
        C encoder, ``native``) -> one write(2) -> pace -> fps HUD
 
+On the card a kernel's frame step is captured once into a CUDA graph and
+replayed on every later frame (``step_graph``): one host call a frame in
+place of the pose's, the pack's and the quantize's ops one by one.
+
 ``--encode auto``, the default, is 'host' when the native library is
 available, else 'device'.
 
@@ -52,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ttrt_torch import IMPORTED_AT, assets, native
+from ttrt_torch import IMPORTED_AT, assets, native, step_graph
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import mesh_fused, pathtrace, render
@@ -290,13 +294,15 @@ def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
     compact (H, W, 3) uint8 frame, which the host expands. ``mesh`` (a
     ``parallel.mesh`` device mesh) renders the frame over its ranks
     (``_pick_renderer_sharded``); rank 0 alone gets the frame's bytes, the
-    others None. ``debug_nans``: ``_finite_check``."""
+    others None. ``debug_nans``: ``_finite_check``. Where
+    ``step_graph.engages``, the step is a ``step_graph.GraphedStep``:
+    captured on its first call, replayed after."""
     device = scene.spheres.radius.device
     render_fn = _pick(scene, cfg, renderer, mesh)
     enc = _encoder(cfg, encode, device, mesh)
     check = _finite_check(debug_nans)
 
-    def frame_step(t: float, cam_offset: torch.Tensor):
+    def frame_step(t, cam_offset: torch.Tensor):
         with span("pose"):
             s = _posed(scene, cfg, t, cam_offset, device)
         fb, _ = render_fn(s, cfg, count_rays=False)
@@ -304,7 +310,9 @@ def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
         with span("quantize"):
             return enc(fb)
 
-    return frame_step
+    if step_graph.engages(device, render_fn, mesh, debug_nans):
+        return step_graph.GraphedStep(frame_step, cfg.dtype, device)
+    return step_graph.eager(frame_step, device)
 
 
 def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
@@ -314,27 +322,37 @@ def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
     ``build_frame_batch_step``, app.py:302-334, computes them), rendered by
     ``_pick_renderer``'s path into one tensor on the scene's device, for
     one copy to the host. Frame k equals ``build_frame_step(...,
-    'host')`` at that time, bit for bit."""
+    'host')`` at that time, bit for bit: the times are added on the
+    scene's device, and a float32 addition has the same bits everywhere.
+    Graphed as ``build_frame_step`` is, with t0 the graph's input."""
     device = scene.spheres.radius.device
     render_fn = _pick_renderer(scene, cfg, renderer)
     check = _finite_check(debug_nans)
-    step = torch.arange(batch, dtype=cfg.dtype) * torch.tensor(
-        cfg.frame_duration, dtype=cfg.dtype)
+    step = (torch.arange(batch, dtype=cfg.dtype) * torch.tensor(
+        cfg.frame_duration, dtype=cfg.dtype)).to(device)
 
-    def batch_step(t0: float, cam_offset: torch.Tensor) -> torch.Tensor:
+    def batch_body(t0: torch.Tensor, cam_offset: torch.Tensor
+                   ) -> torch.Tensor:
         out = torch.empty((batch, cfg.height, cfg.width, 3),
                           dtype=torch.uint8, device=device)
-        ts = torch.tensor(t0, dtype=cfg.dtype) + step
-        for k, t in enumerate(ts.tolist()):
+        ts = t0 + step
+        for k in range(batch):
             with span("pose"):
-                s = _posed(scene, cfg, t, cam_offset, device)
+                s = _posed(scene, cfg, ts[k], cam_offset, device)
             fb, _ = render_fn(s, cfg, count_rays=False)
-            check(fb, t)
+            check(fb, ts[k])
             with span("quantize"):
                 out[k] = encode_rgb_frame(fb)
         return out
 
-    return batch_step
+    if step_graph.engages(device, render_fn, None, debug_nans):
+        return step_graph.GraphedStep(batch_body, cfg.dtype, device)
+
+    def batch_step(t0: float, cam_offset: torch.Tensor) -> torch.Tensor:
+        return batch_body(torch.full((), t0, dtype=cfg.dtype, device=device),
+                          cam_offset)
+
+    return step_graph.eager(batch_step, device)
 
 
 def _frame_generator(seed: int, device) -> torch.Generator:
@@ -384,7 +402,7 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
         with span("quantize"):
             return enc(fb)
 
-    return frame_step
+    return step_graph.eager(frame_step, device)
 
 
 class FrameSync:
@@ -679,6 +697,10 @@ def _run_animation_batched(cfg: RenderConfig, scene, batch: int,
                     dt_frame = max(time.monotonic() - t0, 1e-9)
                     fps = 1.0 / dt_frame
                     disp.write_fps(fps)
+            # the batches issued past the last frame: their copies finish
+            # inside the loop's spans, and a copy's error is raised
+            for job in pending:
+                job.result()
     finally:
         pool.shutdown(wait=True)
     if stats:
@@ -726,8 +748,9 @@ def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
             return enc(fb)
 
     try:
-        return _animate(cfg, frame_step, None, max_frames, interactive,
-                        encode, stats, 0, device, stream, timers)
+        return _animate(cfg, step_graph.eager(frame_step, device), None,
+                        max_frames, interactive, encode, stats, 0, device,
+                        stream, timers)
     finally:
         if checkpoint:
             save_checkpoint(checkpoint, state)

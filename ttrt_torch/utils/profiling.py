@@ -14,6 +14,8 @@ The reference's only instrumentation is the fps printout
     ``quantize``, ``device_wait``, ``copy``, ``encode`` and ``write``.
   - SETUP: the process's set-up, phase by phase, from its start to the
     end of its first frame's write (``SetupTimers``).
+  - STEPS: how the running loop's frame steps on a CUDA device ran:
+    replayed from a captured CUDA graph, or eagerly (``StepCounts``).
   - profile_trace: a torch.profiler trace of CPU and CUDA activity around
     a block, written as a Chrome trace (--profile DIR in the CLI).
 """
@@ -93,11 +95,31 @@ def span(name: str):
     return NO_SPAN if rec is None else rec.stage(name)
 
 
+class StepCounts:
+    """The frame steps of the running loop on a CUDA device: ``replayed``,
+    each a replay of the step's captured CUDA graph (``step_graph``), and
+    ``eager``, each run op by op (a graphed step's first call included).
+    Steps on the CPU are not counted."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.replayed = 0
+        self.eager = 0
+
+
+STEPS = StepCounts()
+
+
 @contextlib.contextmanager
 def recording(timers) -> Iterator[None]:
     """Make ``timers`` (anything with ``stage(name)``) the recorder of
-    ``span`` for the block, then restore the one installed before."""
+    ``span`` for the block, then restore the one installed before. The
+    block is a frame loop: ``STEPS`` starts anew with it and keeps its
+    counts after it, until the next loop."""
     global _recorder
+    STEPS.reset()
     saved, _recorder = _recorder, timers
     try:
         yield
