@@ -4,9 +4,10 @@ and with ``trace`` the per-layer metrics.
 
 Set-up imports the program, builds the cell's scene, and warms its own
 frame step through ``run_animation`` (the kernel library is built there
-on a checkout's first run). The window is one more ``run_animation``
-call, measured from the end of its first frame's write until the first
-write that ends ``seconds`` later:
+on a checkout's first run; a physics cell: through ``run_physics``,
+``scenes/physics.py::drive``). The window is one more such call,
+measured from the end of its first frame's write until the first write
+that ends ``seconds`` later:
 
 - ``fps``: the frames after the first over that span, and
   ``frame_ms_mean`` its inverse in ms (where the cell reports it);
@@ -104,15 +105,18 @@ def percentile(values, q: float) -> float:
 def reference(cell: dict, device, dtype=torch.float32):
     """(scene, sky, render function) of the reference for ``cell`` in
     ``dtype``, each found by name: ``reference/<kind>.py``,
-    ``reference/sky_<sky>.py``, and ``reference/pathtrace.py`` or
+    ``reference/sky_<sky>.py``, and the kind's own ``render`` where it
+    has one (``physics``), else ``reference/pathtrace.py`` or
     ``reference/raytrace.py`` by the loop's renderer."""
     c = cell["config"]
     kind = importlib.import_module(f"benchmark.reference.{c['kind']}")
     sky = importlib.import_module(f"benchmark.reference.sky_{c['sky']}")
-    renderer = ("pathtrace" if cell["workload"]["loop"]["pathtrace"]
-                else "raytrace")
-    render = importlib.import_module(
-        f"benchmark.reference.{renderer}").render
+    render = getattr(kind, "render", None)
+    if render is None:
+        renderer = ("pathtrace" if cell["workload"]["loop"]["pathtrace"]
+                    else "raytrace")
+        render = importlib.import_module(
+            f"benchmark.reference.{renderer}").render
     return (kind.build(c, dtype=dtype, device=device),
             sky.build(c, device=device), render)
 
@@ -143,6 +147,9 @@ class Run:
         self.loop = self.workload["loop"]
         self.checked: List[tuple] = []
         self.compared: List[dict] = []  # each checked frame's pixels
+        # (frame, bit for bit, largest |d|) of each checked frame's
+        # program state against the reference's (physics cells)
+        self.state_gaps: List[tuple] = []
         self.line: dict = {}
 
     # -- the program --------------------------------------------------
@@ -166,6 +173,7 @@ class Run:
         cfg = self._render_config()
         scenes = importlib.import_module(f"benchmark.scenes.{c['kind']}")
         scene = scenes.build(c, cfg, self.device)
+        drive = getattr(scenes, "drive", window.drive)
         lo, hi = w["camera"]["phase_s"]
         phase = float(seed_stream(self.seed, 1).uniform(lo, hi))
         draw = seed_stream(self.seed, 2)
@@ -181,20 +189,24 @@ class Run:
             warm_profiler(self.device)
         with rec:
             warm = window.Sink(frame_bytes)
-            window.drive(app, cfg, c, self.loop, scene, self.seed,
-                         self.device, warm, window.FrameClock(warm),
-                         max_frames=w["warmup_frames"])
+            drive(app, cfg, c, self.loop, scene, self.seed, self.device,
+                  warm, window.FrameClock(warm),
+                  max_frames=w["warmup_frames"])
             self._sync()
             rec.calls.clear()
             self.sink = window.Sink(
                 frame_bytes, self.seconds, keep,
                 self.tracer.on_frame if self.tracer else None)
+            rec.watch(self.sink)
             self.clock = window.FrameClock(self.sink, markers=self.trace)
-            window.drive(app, cfg, c, self.loop, scene, self.seed,
-                         self.device, self.sink, self.clock)
+            drive(app, cfg, c, self.loop, scene, self.seed, self.device,
+                  self.sink, self.clock)
             self._sync()
+        self.states = rec.kept_states()
         if self.tracer:
             self.tracer.close()
+            log(f"the profiler's stop and parse took "
+                f"{self.tracer.read_s:.2f} s inside the window")
         self.peak = (torch.cuda.max_memory_allocated(self.device)
                      if self.device.type == "cuda" else 0)
         return rec.frames()
@@ -236,6 +248,7 @@ class Run:
         kept.setdefault(last, self.sink.last_frame())
         rows_rng = seed_stream(self.seed, 3)
         ref = self.reference()
+        state_gap = getattr(ref[0], "state_gap", None)
         failed = 0
         for i in sorted(kept):
             rows = (None if chk["rows"] is None else
@@ -243,6 +256,8 @@ class Run:
                            .tolist()))
             t = frames[i][0]
             want, _ = self.render_reference(ref, t, rows)
+            if state_gap is not None and i in self.states:
+                self.state_gaps.append((i, *state_gap(self.states[i])))
             try:
                 got = ansi.decode(kept[i], W, H)
                 got = got if rows is None else got[rows]
@@ -272,10 +287,10 @@ class Run:
                 for i in range(span.first_frame,
                                span.first_frame + span.frames)]
 
-    def _per_layer(self, frames) -> dict:
+    def _per_layer(self, frames, e2e: dict) -> dict:
         span = self.tracer.span if self.tracer else None
         record = Record(self.cell, self.sink.frames, dict(self.clock.samples),
-                        span, lambda: self._profiled_work(frames))
+                        span, lambda: self._profiled_work(frames), e2e)
         out = {}
         for m in self.cell["per_layer"]:
             v = _metric_reader(m["name"])(record)
@@ -298,9 +313,17 @@ class Run:
         self._check(frames)
         t_checked = time.perf_counter()
         log(f"check {t_checked - t_closed:.2f} s")
+        for i, same, gap in self.state_gaps:
+            log(f"state of frame {i} (t = {frames[i][0]!r}) against the "
+                f"reference's: bit for bit {same}, largest |d| {gap!r}")
+        last = self.states.get(self.sink.frames - 1)
+        if last is not None:
+            log(f"sim time of the last frame, {self.sink.frames - 1}: "
+                f"{float(last.t)!r}; frames / scene fps: "
+                f"{self.sink.frames / self.workload['camera']['scene_fps']!r}")
         watts = power_limit_w() if self.device.type == "cuda" else None
         if self.trace:
-            metrics = self._per_layer(frames)
+            metrics = self._per_layer(frames, e2e)
             log(f"per-layer metrics {time.perf_counter() - t_checked:.2f} s")
         else:
             metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}

@@ -10,7 +10,9 @@ reading is the largest over the seeds. For each of ``--control-seeds``
 it runs the cell again with the control planted in the program's place
 (``control.Planted``: the reference in bfloat16) and prints the same
 numbers and the run's ``correct``: the upper reading is the smallest. One
-JSON line a run on standard output. Needs a CUDA device.
+JSON line a run on standard output; a physics cell's line also gives each
+checked frame's state against the reference's (frame, bit for bit, the
+largest difference). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def reading(workload: str, seed: int, seconds: float,
                        for f in run.compared],
             "metrics": {k: v["value"]
                         for k, v in run.line["metrics"].items()},
+            "states": [list(g) for g in run.state_gaps],
             "seconds": time.perf_counter() - t0}
 
 

@@ -16,7 +16,7 @@ import torch
 from benchmark import cells, control, harness, window
 from benchmark.trace import Record, Span, breakdown
 
-CELLS = ["demo.orbit", "many10k.orbit", "demo.pathtrace", "demo.batch8"]
+CELLS = ["demo.orbit", "many10k.orbit", "demo.batch8"]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -32,15 +32,22 @@ def test_every_cell_config_and_metric_is_found_by_name():
         assert cell["workload"]["name"] == w["name"]
         assert (cells.HERE / "scenes" / f"{cell['config']['kind']}.py"
                 ).is_file()
+        # the batched cell's write intervals are read per layer
         assert {m["name"] for m in cell["end_to_end"]} == {
-            "fps", "frame_ms_p95", "latency_ms_p95", "setup_s"} | (
+            "fps", "latency_ms_p95", "setup_s"} | (
+            set() if w["name"] == "demo.batch8" else {"frame_ms_p95"}) | (
             {"frame_ms_mean"} if w["name"] == "many10k.orbit" else set())
         assert cell["per_layer"]
     for m in spec["end_to_end"] + spec["per_layer"]:
         assert NAME.match(m["name"])
+    # a per-layer metric moves an end-to-end metric that every cell it is
+    # read in reports
+    everywhere = [w["name"] for w in spec["workloads"]]
     for m in spec["per_layer"]:
         assert (cells.HERE / "metrics" / f"{m['name']}.py").is_file()
-        assert m["moves"] == "fps"
+        for w in m.get("workloads", everywhere):
+            assert m["moves"] in {e["name"] for e in cells.load_cell(
+                w, spec)["end_to_end"]}, (m["name"], w)
     with pytest.raises(cells.UnknownCell):
         cells.load_cell("no.such.cell", spec)
 
@@ -124,8 +131,10 @@ def test_the_metric_readers_read_a_recorded_span(tiny):
     assert read["device_idle_pct"] == pytest.approx(60.0)
     assert read["render_kernel_roofline"] == pytest.approx(
         100 * (1e3 * 1000 * 128 / 67e12) / 1.25)
-    assert read["pathtrace_kernel_roofline"] is None
     assert read["mesh_fused_kernel_ms"] is None
+    assert read["frame_ms_p95.batched"] is None
+    rec.end_to_end = {"fps": 400.0, "frame_ms_p95": 3.25}
+    assert harness._metric_reader("frame_ms_p95.batched")(rec) == 3.25
     bd = breakdown(_span())
     assert bd["device_ops"][0] == ["render_kernel<false>", 0.0025]
     assert bd["idle_gaps"][0][0] == "encode+write/host code"
@@ -136,10 +145,22 @@ def test_the_metric_readers_read_a_recorded_span(tiny):
     assert harness._metric_reader("encode_write_ms")(rec) is None
 
 
-def test_a_traced_cpu_run_leaves_device_metrics_out(tiny):
-    run = harness.run_cell("demo.orbit", 3, 1.0, True, device="cpu",
-                           overrides=tiny)
-    assert set(run.line["metrics"]) == {"encode_write_ms", "render_copy_ms"}
+@pytest.mark.parametrize("cell", ["demo.orbit", "demo.batch8",
+                                  "physics.drop"])
+def test_a_traced_cpu_run_leaves_device_metrics_out(cell, tiny):
+    """On the CPU a traced run reports exactly the metrics whose readers
+    read the host: the program's spans and set-up phases, and the host
+    clock's (the batched cell's write intervals); no device trace, and no
+    count of steps on the card."""
+    if cell == "physics.drop":
+        tiny = {**tiny, "config": {**tiny["config"], "width": 48,
+                                   "height": 16}}
+    run = harness.run_cell(cell, 3, 1.0, True, device="cpu", overrides=tiny)
+    spans = {m["name"] for m in run.cell["per_layer"]
+             if m["source"] in ("program_span", "host_clock")}
+    assert set(run.line["metrics"]) == spans
+    assert ("physics_ms" in spans) == (cell == "physics.drop")
+    assert ("frame_ms_p95.batched" in spans) == (cell == "demo.batch8")
     assert "busy_s" not in run.line["device"]
 
 
@@ -162,7 +183,7 @@ def _stale(app):
 
 def _altered(app):
     """Each frame's red channel inverted where the step makes it."""
-    real = app.build_pathtrace_frame_step
+    real = app.build_frame_step
 
     def build(*a, **k):
         step = real(*a, **k)
@@ -174,7 +195,7 @@ def _altered(app):
 
         return frame_step
 
-    return "build_pathtrace_frame_step", build
+    return "build_frame_step", build
 
 
 def _half_batch(app):
@@ -196,7 +217,7 @@ def _half_batch(app):
 
 @pytest.mark.parametrize("cell,fault", [("demo.orbit", _stale),
                                         ("many10k.orbit", _stale),
-                                        ("demo.pathtrace", _altered),
+                                        ("demo.orbit", _altered),
                                         ("demo.batch8", _half_batch)])
 def test_a_broken_timed_path_is_not_correct(cell, fault, tiny, monkeypatch):
     from ttrt_torch import app

@@ -27,7 +27,8 @@ def test_the_harness_loads_no_jax_and_not_the_jax_package():
         f"harness._metric_reader({p.stem!r})\n"
         for p in sorted((cells.HERE / "metrics").glob("[!_]*.py")))
     mods = _loaded(HARNESS + ["benchmark.scenes.demo",
-                              "benchmark.scenes.many"],
+                              "benchmark.scenes.many",
+                              "benchmark.scenes.physics"],
                    "from benchmark import harness\n" + readers)
     tops = {m.split(".")[0] for m in mods}
     assert "ttrt_torch" in tops

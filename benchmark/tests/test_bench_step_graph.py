@@ -17,7 +17,7 @@ def test_the_metric_is_declared_for_the_graphed_cells():
     assert (m["layer"], m["moves"], m["workloads"]) == (
         "frame step and copy", "fps", CELLS)
     assert "step_graph_pct" not in {
-        x["name"] for x in cells.load_cell("demo.pathtrace")["per_layer"]}
+        x["name"] for x in cells.load_cell("physics.drop")["per_layer"]}
 
 
 def test_the_reader_reads_the_share_of_replayed_steps(monkeypatch):

@@ -13,6 +13,8 @@ to ``tries`` spans.
 
 from __future__ import annotations
 
+import heapq
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
@@ -111,6 +113,7 @@ class Tracer:
         self.span: Optional[Span] = None
         self._prof = None
         self._first = 0
+        self.read_s = 0.0  # seconds the window spent stopping and parsing
 
     def on_frame(self, i: int) -> None:
         if self.span is not None or self.tries == 0:
@@ -120,8 +123,10 @@ class Tracer:
             self._prof.start()
             self._first = i + 1
         elif self._prof is not None and i == self._first + self.frames - 1:
+            t0 = time.perf_counter()
             self._prof.stop()
             span = parse(self._prof, self.frames, self._first)
+            self.read_s += time.perf_counter() - t0
             self._prof = None
             self.tries -= 1
             if span is not None and span.device:
@@ -139,17 +144,21 @@ class Tracer:
 class Record:
     """What a per-layer reader reads: the cell, the window's frames and
     stage samples, the traced span (None when the profiler gave no device
-    events), and ``profiled_work()``: the reference's work count of each
-    frame of the span."""
+    events), ``profiled_work()``: the reference's work count of each
+    frame of the span, and ``end_to_end``: the traced run's own
+    end-to-end numbers by name, as the harness computes them in every
+    run."""
 
     def __init__(self, cell: dict, frames: int, stages: Dict[str, list],
-                 span: Optional[Span], profiled_work: Callable[[], list]):
+                 span: Optional[Span], profiled_work: Callable[[], list],
+                 end_to_end: Optional[Dict[str, float]] = None):
         self.cell = cell
         self.config = cell["config"]
         self.workload = cell["workload"]
         self.frames = frames
         self.stages = stages
         self.span = span
+        self.end_to_end = end_to_end or {}
         self._work_fn = profiled_work
         self._work = None
 
@@ -161,6 +170,24 @@ class Record:
         if self._work is None:
             self._work = self._work_fn()
         return self._work
+
+
+def _around(times: List[float], host: List[tuple]) -> List[List[tuple]]:
+    """For each of the increasing ``times``, the host events that hold it
+    (start <= time <= end), in ``host``'s order: one sweep over the events
+    by start with a heap of the open ones by end, so that a span of many
+    thousands of launches and gaps is read in seconds."""
+    order = sorted(range(len(host)), key=lambda i: host[i][1])
+    open_: List[tuple] = []  # (end, index)
+    out, k = [], 0
+    for t in times:
+        while k < len(order) and host[order[k]][1] <= t:
+            heapq.heappush(open_, (host[order[k]][2], order[k]))
+            k += 1
+        while open_ and open_[0][0] < t:
+            heapq.heappop(open_)
+        out.append([host[i] for i in sorted(i for _, i in open_)])
+    return out
 
 
 def breakdown(span: Span, top: int = 10) -> dict:
@@ -178,9 +205,9 @@ def breakdown(span: Span, top: int = 10) -> dict:
             gaps.append((t, s))
         t = max(t, e)
     idle: Dict[str, float] = {}
-    for g0, g1 in gaps:
-        mid = 0.5 * (g0 + g1)
-        around = [h for h in span.host if h[1] <= mid <= h[2]]
+    for (g0, g1), around in zip(gaps, _around([0.5 * (g0 + g1)
+                                               for g0, g1 in gaps],
+                                              span.host)):
         stage = [h[0][6:] for h in around if h[0].startswith("stage:")]
         ops = sorted((h for h in around if not h[0].startswith("stage:")),
                      key=lambda h: h[2] - h[1])

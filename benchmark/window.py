@@ -11,10 +11,11 @@ recorded.
   and keeps nothing else, except references to the few frames the check
   decodes. When the window's time is up it raises SIGINT in its own
   process: the loop's SIGINT flag stops it after that frame.
-- ``Recorder`` wraps the program's three frame-step builders, which
-  ``run_animation`` looks up at call time. The step it returns adds the
-  orbit's phase to the scene time, notes that time and the host clock at
-  the call, and returns the program's own result.
+- ``Recorder`` wraps the program's four frame-step builders, which
+  ``run_animation`` and ``run_physics`` look up at call time. The step it
+  returns adds the orbit's phase to the scene time (a physics step: takes
+  the steps made as the scene time), notes that time and the host clock
+  at the call, and returns the program's own result.
 """
 
 from __future__ import annotations
@@ -141,18 +142,26 @@ class Sink:
 
 
 class Recorder:
-    """Wraps ``app.build_frame_step``, ``build_pathtrace_frame_step`` and
-    ``build_frame_batch_step`` for the life of a ``with`` block.
+    """Wraps ``app.build_frame_step``, ``build_pathtrace_frame_step``,
+    ``build_frame_batch_step`` and ``build_physics_frame_step`` for the
+    life of a ``with`` block.
 
     Each call of a step is noted as (scene time, host clock at the call,
     frames it makes). ``phase`` is added to the scene time. The batched
     step's scene clock is ``scene_fps``: the loop passes it t0 = issued
     frames x the loop's frame duration (1e-9 s with pacing off, which
     would make a batch one picture), so the wrapper passes the step
-    phase + issued / scene_fps, and builds it with that frame rate."""
+    phase + issued / scene_fps, and builds it with that frame rate.
+
+    The physics step is built with the frame rate ``scene_fps`` too, so
+    that the world advances 1 / scene_fps a frame while the loop's pacing
+    stays off; its k-th call since its build is noted at scene time k /
+    scene_fps, the frame that shows the world after k steps. Once
+    ``watch(sink)`` is called, the state each call returns is kept for
+    the frames the sink keeps and for the last (``kept_states``)."""
 
     BUILDERS = ("build_frame_step", "build_pathtrace_frame_step",
-                "build_frame_batch_step")
+                "build_frame_batch_step", "build_physics_frame_step")
 
     def __init__(self, app, phase: float, scene_fps: float,
                  loop_frame_duration: float):
@@ -162,6 +171,9 @@ class Recorder:
         self.loop_frame_duration = loop_frame_duration
         self.calls: List[tuple] = []
         self._saved = {}
+        self._sink: Optional[Sink] = None
+        self._states: Dict[int, object] = {}
+        self._last = None
 
     def __enter__(self):
         for name in self.BUILDERS:
@@ -170,6 +182,7 @@ class Recorder:
         self.app.build_pathtrace_frame_step = self._wrap_single(
             "build_pathtrace_frame_step")
         self.app.build_frame_batch_step = self._wrap_batch()
+        self.app.build_physics_frame_step = self._wrap_physics()
         return self
 
     def __exit__(self, *exc):
@@ -209,6 +222,48 @@ class Recorder:
 
         return builder
 
+    def _wrap_physics(self):
+        build = self._saved["build_physics_frame_step"]
+
+        def builder(scene, cfg, *args, **kw):
+            step = build(scene, cfg.with_(frame_rate=self.scene_fps), *args,
+                         **kw)
+            taken = 0
+
+            def frame_step(state, cam_offset, count_rays=False):
+                nonlocal taken
+                self._keep_last()
+                taken += 1
+                self.calls.append((taken / self.scene_fps,
+                                   time.perf_counter(), 1))
+                out = step(state, cam_offset, count_rays)
+                self._last = out[0]
+                return out
+
+            return frame_step
+
+        return builder
+
+    def watch(self, sink: Sink) -> None:
+        """Keep the physics states of the frames ``sink`` keeps, from the
+        next call on."""
+        self._sink, self._states, self._last = sink, {}, None
+
+    def _keep_last(self) -> None:
+        """Before a call: keep the last call's state if its frame, written
+        by now, is one the sink keeps."""
+        i = len(self.calls) - 1
+        if (self._sink is not None and self._last is not None
+                and i in self._sink.kept):
+            self._states[i] = self._last
+
+    def kept_states(self) -> Dict[int, object]:
+        """The physics state of each kept frame and of the last, by the
+        frame's index; empty where no physics step ran."""
+        if self._last is not None:
+            self._states[len(self.calls) - 1] = self._last
+        return self._states
+
     def frames(self) -> List[tuple]:
         """(scene time, host clock at its step's call) of each frame in the
         order the loop makes them: a batch's k-th frame at t0 + k /
@@ -229,7 +284,8 @@ def drive(app, cfg, config: dict, loop: dict, scene, seed: int, device,
           sink: Sink, clock: FrameClock,
           max_frames: Optional[int] = None) -> None:
     """One call of ``run_animation`` as the CLI makes it, non-interactive,
-    into ``sink``, timed by ``clock``."""
+    into ``sink``, timed by ``clock``. A scene kind whose
+    ``scenes/<kind>.py`` defines ``drive`` is driven by that instead."""
     app.run_animation(cfg, config["sky"], max_frames=max_frames,
                       interactive=False, encode=loop["encode"], scene=scene,
                       pipeline=loop["pipeline"], device=device, stream=sink,
