@@ -129,8 +129,32 @@ The Monte-Carlo path tracer (--pathtrace), through the path-tracing kernel
   P4. the main path: 30 frames of run_animation(..., pathtrace=True), the
       launch counts set to 0 before and read after, then one frame of the
       eager estimator on the card, whose image mean must be within 0.01 of
-      the kernel's frame, and one frame of --pathtrace --scene many (the
-      estimator, tracing through cluster_nearest).
+      the kernel's frame.
+
+The many-object path tracer (--pathtrace --scene many), through
+csrc/mesh.cu::pathtrace_mesh_kernel (pathtrace.cuh's estimator over the
+fused kernel's walk), with the demo's area light:
+
+  PM1. the kernel vs its plain version, both on the card: the full
+       480x280x10spp, 10-bounce frame of the 10k-sphere scene at the
+       frame seed of t = 0.7, 24 drawn rows of it against the plain
+       version's same rows, bit for bit; then PATHTRACE_MESH_CASES at
+       reduced sizes, each in both reduce modes, bit for bit with equal
+       work: an odd frame, 33 samples (two rounds of sample threads), and
+       240,000 spheres (the boxes read in place) at 2 and 33 samples:
+       every instantiation the launch can choose.
+  PM2. the kernel against the eager estimator (its own random stream,
+       tracing through cluster_nearest) on the full frame: image means
+       within PT_ESTIMATOR_MEAN_TOL.
+  PM3. timing: the wrapper (CUDA events, median of 10), the kernel alone
+       (torch.profiler); its work and traces a frame; its launch shape
+       (pathtrace_layout) and the ptxas lines of its four
+       instantiations.
+  PM4. the main path: PM_FRAMES frames of run_animation(..., scene=many,
+       pathtrace=True), the launch counts set to 0 before and read after:
+       the kernel's rise by PM_FRAMES, the plain version's and
+       cluster_nearest's stay 0, and profiling.PATH_STEPS counts every
+       step on the kernel's route.
 
 Image cubemaps ('milky_way', the 256-texel starfield; the texels loaded in
 the kernels), the sky weights and the pixel-rate frame (csrc/render.cu,
@@ -284,6 +308,8 @@ MESH_FRAMES = 30
 EAGER_FRAMES = 2
 N_SPHERES = 10_000
 PT_FRAMES = 30
+PM_FRAMES = 10
+PM_ROWS = 24  # rows of the full many-object frame held bit for bit
 # phase S4's --skybox <dir> main paths: frames each, and the faces' dim
 FACE_FRAMES = 5
 FACE_DIM = 96
@@ -448,6 +474,29 @@ PATHTRACE_CASES = (
     PathtraceCase("in_place_rounds", "1400 spheres at 33 spp", 1400,
                   {"width": 16, "height": 8, "rays_per_pixel": 33,
                    "bounce_limit": 3}, staged=False, rounds=True),
+)
+
+# The many-object path tracer's launch shapes that phase PM1's full frame
+# does not take, at reduced sizes (phase PM1 and
+# tests/test_torch_cuda_pathtrace.py); ``spheres`` is the MeshScene's
+# count. 240,000 spheres make a box table past a block's shared memory,
+# as in FUSED_CASES: the boxes are read in place.
+PATHTRACE_MESH_CASES = (
+    PathtraceCase("mesh_odd", "97x41, 3 spp: neither side a multiple of a "
+                  "block", N_SPHERES,
+                  {"width": 97, "height": 41, "rays_per_pixel": 3,
+                   "bounce_limit": 4}),
+    PathtraceCase("mesh_rounds", "33 spp: rounds of 17 and 16 sample "
+                  "threads", N_SPHERES,
+                  {"width": 29, "height": 13, "rays_per_pixel": 33,
+                   "bounce_limit": 4}, rounds=True),
+    PathtraceCase("mesh_in_place", "240,000 spheres: the boxes read in "
+                  "place", 240_000,
+                  {"width": 24, "height": 12, "rays_per_pixel": 2,
+                   "bounce_limit": 3}, staged=False),
+    PathtraceCase("mesh_in_place_rounds", "240,000 spheres at 33 spp",
+                  240_000, {"width": 8, "height": 4, "rays_per_pixel": 33,
+                            "bounce_limit": 3}, staged=False, rounds=True),
 )
 
 # The sky-weight kernel's launch shapes that phase S5's full frame does
@@ -875,15 +924,22 @@ def pathtrace_exact(scene, lights, cfg, seed: int, reduce: str = "mean",
     return stats
 
 
-def pathtrace_case(dev, case: PathtraceCase) -> dict:
+def pathtrace_case(dev, case: PathtraceCase, mesh: bool = False) -> dict:
     """Path-trace ``case`` with the kernel and its plain version on
     ``dev``, the clipped mean and the sum (``pathtrace_exact`` each), its
-    scene staged and its samples in rounds as ``case`` says. Returns each
-    mode's stats and the launch shape (``pathtrace_layout``)."""
+    scene (with ``mesh``: its boxes) staged and its samples in rounds as
+    ``case`` says; ``mesh`` takes the many-object scene of
+    ``case.spheres`` spheres at t = 1.5. Returns each mode's stats and the
+    launch shape (``pathtrace_layout``)."""
+    from ttrt_torch.config import RenderConfig
     from ttrt_torch.kernels import pathtrace
     from ttrt_torch.render import pathtrace as estimator
 
-    cfg, scene = _case_scene(dev, case)
+    if mesh:
+        cfg = RenderConfig(**case.config)
+        scene = pathtrace_mesh_scene(dev, case.spheres, cfg, 1.5)
+    else:
+        cfg, scene = _case_scene(dev, case)
     lights = estimator.default_area_lights(cfg, dev)
     seed = pathtrace.frame_seed(0, 1.5)
     out = {}
@@ -895,8 +951,50 @@ def pathtrace_case(dev, case: PathtraceCase) -> dict:
         assert (shape["sample_threads"] < cfg.rays_per_pixel) == case.rounds
     out["layout"] = {k: shape[k] for k in (
         "sample_threads", "threads_per_block", "blocks", "smem_bytes",
-        "scene_staged")}
+        "scene_staged", "registers", "local_bytes")}
     return out
+
+
+def pathtrace_mesh_scene(dev, n_spheres: int, cfg, t: float):
+    """The many-object scene of ``n_spheres`` spheres (seed 0) under
+    'colors', its camera on the orbit at ``t``."""
+    import torch
+
+    from ttrt_torch import assets
+    from ttrt_torch.frames import orbit_camera_frame
+    from ttrt_torch.mesh.scene import many_sphere_scene
+
+    scene = many_sphere_scene(assets.load_skybox("colors", device=dev),
+                              n_spheres, cfg.width, cfg.height,
+                              dtype=torch.float32, device=dev)
+    return scene.with_camera_frame(
+        orbit_camera_frame(t, dtype=torch.float32, device=dev))
+
+
+def pathtrace_mesh_rows(scene, lights, cfg, seed: int, n_rows: int,
+                        draw: int = 0) -> dict:
+    """The many-object path tracer's whole frame against its plain
+    version's ``n_rows`` rows drawn by ``default_rng(draw)``, on the same
+    card tensors: those rows bit for bit equal. Returns the stats."""
+    import torch
+
+    from ttrt_torch.kernels import pathtrace
+
+    rows = sorted(np.random.default_rng(draw).choice(
+        cfg.height, n_rows, replace=False).tolist())
+    fb_k, work_k = pathtrace.pathtrace_frame_cuda(scene, lights, cfg, seed)
+    fb_p, work_p = pathtrace.pathtrace_frame_plain(scene, lights, cfg, seed,
+                                                   rows=rows)
+    torch.cuda.synchronize()
+    k = fb_k.to_array().cpu().numpy()
+    assert k.shape == (cfg.height, cfg.width, 3) and np.isfinite(k).all()
+    d = np.abs(fb_p.to_array().cpu().numpy().astype(np.float64) - k[rows])
+    stats = {"rows": rows, "max_abs": float(d.max()),
+             "diff_px": int((d > 0).any(axis=-1).sum()),
+             "work": [int(v) for v in work_k],
+             "rows_work_ref": [int(v) for v in work_p]}
+    assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, stats
+    return stats
 
 
 def sky_case(dev, case: PathtraceCase) -> dict:
@@ -1642,6 +1740,7 @@ def main() -> int:
     mesh_kernels, fused_work = mesh_phases(card, dev, full, report)
     kernels += mesh_kernels
     kernels.append(pathtrace_phases(card, dev, full, report))
+    kernels.append(pathtrace_mesh_phases(card, dev, full, report))
     kernels += sky_phases(card, dev, full, fused_work, report)
     kernels += mesh_axis_phases(card, dev, full)
     kernels += scene_phases(card, dev, full)
@@ -2209,8 +2308,6 @@ def pathtrace_phases(card: str, dev, full, report: str) -> dict:
     from ttrt_torch.bench import _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import pathtrace
-    from ttrt_torch.kernels.mesh import cluster_nearest_cuda
-    from ttrt_torch.mesh.scene import many_sphere_scene
     from ttrt_torch.render import pathtrace as estimator
     from ttrt_torch.scene import demo_scene
     from ttrt_torch.utils.profiling import StageTimers
@@ -2328,29 +2425,6 @@ def pathtrace_phases(card: str, dev, full, report: str) -> dict:
           f"{eager_s:.3f} s (host clock): image mean {mean_e:.6f} against "
           f"the kernel's {mean_k:.6f}")
     assert abs(mean_e - mean_k) < PT_ESTIMATOR_MEAN_TOL, (mean_e, mean_k)
-    # --pathtrace --scene many: the estimator, tracing the MeshScene
-    # through cluster_nearest
-    many = many_sphere_scene(assets.load_skybox("colors", device=dev),
-                             N_SPHERES, full.width, full.height,
-                             dtype=torch.float32, device=dev)
-    for fn in (pt_cuda, pt_plain, cluster_nearest_cuda):
-        fn.launches = 0
-    sink = io.BytesIO()
-    t0 = time.perf_counter()
-    app.run_animation(unpaced, "colors", max_frames=1, interactive=False,
-                      encode="device", scene=many, stream=sink,
-                      pathtrace=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    validate_stream(sink.getvalue(), full.width, full.height, 1)
-    many_launches = [fn.launches for fn in (pt_cuda, pt_plain,
-                                            cluster_nearest_cuda)]
-    print(f"phase P4 [{card}]: --pathtrace --scene many ({N_SPHERES} "
-          f"spheres), one frame through the eager estimator in {wall:.3f} s "
-          f"(host clock); launches path tracer {many_launches[0]} (plain "
-          f"{many_launches[1]}), cluster_nearest {many_launches[2]}")
-    assert many_launches[:2] == [0, 0] and many_launches[2] > 0, many_launches
-
     return {
         "name": "pathtrace",
         "route": "cuda",
@@ -2362,6 +2436,110 @@ def pathtrace_phases(card: str, dev, full, report: str) -> dict:
         "plain_ms": pt_plain_ms,
         "bound_ms": pt_bound[0],
         "bound_by": pt_bound[1],
+        "library_ms": None,  # no single PyTorch call renders a frame
+    }
+
+
+def pathtrace_mesh_phases(card: str, dev, full, report: str) -> dict:
+    """Phases PM1-PM4; returns the many-object path tracer's entry of the
+    kernels line. ``report`` is phase 1's nvcc report."""
+    import torch
+
+    from ttrt_torch import app
+    from ttrt_torch.bench import _kernel_ms, _median_ms
+    from ttrt_torch.kernels import pathtrace
+    from ttrt_torch.kernels.mesh import cluster_nearest_cuda
+    from ttrt_torch.render import pathtrace as estimator
+    from ttrt_torch.utils.profiling import PATH_STEPS, StageTimers
+
+    pt_cuda = pathtrace.pathtrace_frame_cuda
+    pt_plain = pathtrace.pathtrace_frame_plain
+    lights = estimator.default_area_lights(full, dev)
+    many = pathtrace_mesh_scene(dev, N_SPHERES, full, 0.7)
+    seed = pathtrace.frame_seed(0, 0.7)
+
+    # -- phase PM1: the kernel vs its plain version ---------------------------
+    t0 = time.perf_counter()
+    stats = pathtrace_mesh_rows(many, lights, full, seed, PM_ROWS)
+    print(f"phase PM1: 480x280x10spp, 10 bounces, t=0.7, {PM_ROWS} rows in "
+          f"{time.perf_counter() - t0:.2f} s: {json.dumps(stats)}")
+    for case in PATHTRACE_MESH_CASES:
+        t0 = time.perf_counter()
+        stats = pathtrace_case(dev, case, mesh=True)
+        print(f"phase PM1: {case.label} ({time.perf_counter() - t0:.2f} s): "
+              f"{json.dumps(stats)}")
+
+    # -- phase PM2: the kernel vs the eager estimator -------------------------
+    fb_k, work = pt_cuda(many, lights, full, seed)
+    t0 = time.perf_counter()
+    fb_e = estimator.pathtrace_frame(
+        many, lights, full, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    mean_k = float(fb_k.to_array().mean())
+    mean_e = float(fb_e.to_array().mean())
+    print(f"phase PM2 [{card}]: the eager estimator, one frame in "
+          f"{eager_s:.3f} s (host clock): image mean {mean_e:.6f} against "
+          f"the kernel's {mean_k:.6f}")
+    assert abs(mean_e - mean_k) < PT_ESTIMATOR_MEAN_TOL, (mean_e, mean_k)
+
+    # -- phase PM3: timing ----------------------------------------------------
+    traces = pathtrace.total_traces(work, lights.count)
+    pm_ms = _median_ms(
+        lambda: pt_cuda(many, lights, full, seed, count_rays=False),
+        reps=10, warmup=2)
+    pm_kernel_ms, pm_how = _kernel_ms(
+        lambda: pt_cuda(many, lights, full, seed, count_rays=False),
+        "pathtrace_mesh_kernel", reps=5)
+    print(f"phase PM3 [{card}]: many-object path tracer, {N_SPHERES} "
+          f"spheres, 480x280x10spp, 10 bounces, t=0.7: work (nearest-hit "
+          f"traces, hits, unblocked shadow rays) {[int(v) for v in work]} = "
+          f"{traces} traces; wrapper {pm_ms:.4f} ms/frame (CUDA events, "
+          f"median of 10), kernel {pm_kernel_ms:.4f} ms = "
+          f"{traces / pm_kernel_ms / 1e3:.2f} Mray/s ({pm_how}); the eager "
+          f"estimator {1e3 * eager_s:.1f} ms (PM2)")
+    print(f"phase PM3: its launch: "
+          f"{json.dumps(pathtrace.pathtrace_layout(many, lights, full))}")
+    for line in _ptxas_lines(report, "pathtrace_mesh_kernel"):
+        print(f"phase PM3: ptxas: {line}")
+
+    # -- phase PM4: the --pathtrace --scene many main path --------------------
+    for fn in (pt_cuda, pt_plain, cluster_nearest_cuda):
+        fn.launches = 0
+    sink = io.BytesIO()
+    timers = StageTimers()
+    t0 = time.perf_counter()
+    app.run_animation(full.with_(frame_rate=1e9), "colors",
+                      max_frames=PM_FRAMES, interactive=False,
+                      encode="device", scene=many, stream=sink,
+                      timers=timers, pathtrace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    validate_stream(sink.getvalue(), full.width, full.height, PM_FRAMES)
+    launches = [fn.launches for fn in (pt_cuda, pt_plain,
+                                       cluster_nearest_cuda)]
+    routes = (PATH_STEPS.kernel, PATH_STEPS.estimator)
+    split = {name: round(st["mean_ms"], 4)
+             for name, st in timers.summary().items()}
+    print(f"phase PM4 [{card}]: --pathtrace --scene many: {PM_FRAMES} "
+          f"frames in {wall:.3f} s = {PM_FRAMES / wall:.2f} fps end to end "
+          f"(pacing off), stage means (ms) {json.dumps(split)}; launches "
+          f"path tracer {launches[0]} (plain {launches[1]}), "
+          f"cluster_nearest {launches[2]}; steps by route (kernel, "
+          f"estimator) {routes}")
+    assert launches == [PM_FRAMES, 0, 0], launches
+    assert routes == (PM_FRAMES, 0), routes
+    return {
+        "name": "pathtrace_mesh",
+        "route": "cuda",
+        "source": "ttrt_torch/kernels/csrc/mesh.cu",
+        "replaces": None,  # JAX path-traces a MeshScene eagerly
+        "launches": PM_FRAMES,
+        "max_abs_err": 0.0,
+        "ms": pm_ms,
+        "plain_ms": None,
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,  # no single PyTorch call renders a frame
     }
 

@@ -1,11 +1,15 @@
-"""The path-tracing kernel (``csrc/pathtrace.cu::pathtrace_kernel``) and the
-sky-weight kernel (``csrc/render.cu::sky_weight_kernel``) on the card.
+"""The path-tracing kernels (``csrc/pathtrace.cu::pathtrace_kernel``,
+``csrc/mesh.cu::pathtrace_mesh_kernel``) and the sky-weight kernel
+(``csrc/render.cu::sky_weight_kernel``) on the card.
 
 The path tracer runs one thread per (pixel, sample): each launch shape of
 ``chip_smoke.PATHTRACE_CASES`` (with the full frames of ``chip_smoke.py``
 phases P1 and M2, every instantiation the launch can choose) equals the
 plain version bit for bit in both reduce modes, work included, and the
-full frame fills the card in several waves within the launch bounds. The
+full frame fills the card in several waves within the launch bounds. So
+does the many-object path tracer (``csrc/mesh.cu::pathtrace_mesh_kernel``)
+on ``chip_smoke.PATHTRACE_MESH_CASES`` and on 24 drawn rows of its full
+10k-sphere frame. The
 sky weights run one thread per ray: ``chip_smoke.SKY_CASES`` bit for bit,
 and the full frame in several waves. The render and fused kernels, which
 share the sample-thread reduction, keep their registers and no spill.
@@ -81,6 +85,33 @@ def test_pathtrace_full_frame_fills_the_card(cuda):
     main = {k: v for k, v in _spills("pathtrace_kernel").items()
             if "kernelILb1ELb0ELb0E" in k or "kernelILb1ELb1ELb0E" in k}
     assert len(main) == 2 and not any(main.values()), main
+
+
+@pytest.mark.parametrize("case", chip_smoke.PATHTRACE_MESH_CASES,
+                         ids=[c.key for c in chip_smoke.PATHTRACE_MESH_CASES])
+def test_pathtrace_mesh_kernel_matches_plain_version(cuda, case):
+    stats = chip_smoke.pathtrace_case(cuda, case, mesh=True)
+    for reduce in pathtrace.REDUCE:
+        assert stats[reduce]["max_abs"] == 0.0, stats
+        assert stats[reduce]["work"] == stats[reduce]["work_ref"], stats
+
+
+def test_pathtrace_mesh_full_frame_rows(cuda):
+    """The 10k-sphere scene at 480x280x10, 10 bounces: 24 drawn rows of the
+    kernel's frame equal the plain version's bit for bit; the boxes are
+    staged, the blocks take several waves within the launch bounds' 64
+    registers."""
+    cfg = RenderConfig()
+    many = chip_smoke.pathtrace_mesh_scene(cuda, chip_smoke.N_SPHERES, cfg,
+                                           0.7)
+    lights = estimator.default_area_lights(cfg, cuda)
+    stats = chip_smoke.pathtrace_mesh_rows(
+        many, lights, cfg, pathtrace.frame_seed(0, 0.7), chip_smoke.PM_ROWS,
+        draw=3)
+    assert stats["max_abs"] == 0.0 and stats["diff_px"] == 0, stats
+    shape = pathtrace.pathtrace_layout(many, lights, cfg)
+    assert shape["sample_threads"] == 10 and shape["scene_staged"] == 1
+    assert shape["waves"] > 1 and 0 < shape["registers"] <= 64, shape
 
 
 @pytest.mark.parametrize("case", chip_smoke.SKY_CASES,

@@ -89,12 +89,13 @@ def test_area_light_packing_and_kernel_gates():
                                dtype=torch.float32, device="cpu")
     image_sky = ts._replace(skybox=Skybox(ts.skybox.packed, None))
     mesh = make_scene("many", cfg, "colors", device="cpu", n_spheres=20)
+    pathtrace.check_supported(mesh, tl, cfg)
     for scene, lights, c, match in [
             (ts, tl, cfg.with_(dtype=torch.float64), "float32"),
             (ts, tl, cfg.with_(bounce_limit=11), "bounce_limit <= 10"),
             (ts, eleven, cfg, "<= 10 area lights"),
             (image_sky, tl, cfg, "procedural sky"),
-            (mesh, tl, cfg, "demo scene")]:
+            (mesh._replace(clusters=None), tl, cfg, "cluster pack")]:
         with pytest.raises(ConfigError, match=match):
             pathtrace.pathtrace_frame(scene, lights, c, 0)
     before = pathtrace.pathtrace_frame_cuda.launches

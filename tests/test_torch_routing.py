@@ -3,9 +3,10 @@
 kernel`` refuses a config no kernel serves, ``_pick_renderer`` sends
 float64 and ``--renderer eager`` to the integrator, and ``trace_ray_mesh``
 gives rays off the CPU to the cluster_nearest kernel or raises.
-``--pathtrace`` takes the path-tracing kernel (its plain version here) for
-a float32 demo scene and the eager estimator for ``--renderer eager``,
-float64 and ``--scene many``, and refuses what neither serves in one line.
+``--pathtrace`` takes a path-tracing kernel (its plain version here) for
+a float32 demo scene or ``MeshScene`` and the eager estimator for
+``--renderer eager`` and float64, and refuses what neither serves in one
+line.
 """
 
 import numpy as np
@@ -157,10 +158,11 @@ def test_cli_pathtrace_refusals_are_one_line():
 
 
 def test_pick_pathtracer_routes(monkeypatch):
-    """auto: the kernel for a float32 demo scene, the estimator for
-    float64 and a MeshScene; eager: the estimator, also past the kernel's
-    gates (--bounces 11), which auto refuses. The estimator's routes run a
-    frame each without a kernel launch."""
+    """auto: a kernel for a float32 demo scene or MeshScene, the estimator
+    for float64; eager: the estimator, also past the kernel's gates
+    (--bounces 11), which auto refuses. The estimator's routes run a frame
+    each without a kernel launch; the MeshScene's auto route runs one on
+    the kernel's plain version."""
     import io
 
     cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2,
@@ -172,12 +174,11 @@ def test_pick_pathtracer_routes(monkeypatch):
     assert pick(demo, lights, cfg) and pick(demo, lights, cfg, "kernel")
     assert not pick(demo, lights, cfg, "eager")
     assert not pick(demo, lights, cfg.with_(dtype=torch.float64))
-    assert not pick(many, lights, cfg)
+    assert pick(many, lights, cfg)
     deep = cfg.with_(bounce_limit=11)
     with pytest.raises(ConfigError, match="--renderer eager"):
         pick(demo, lights, deep)
-    with pytest.raises(ConfigError, match="demo scene"):
-        pick(many, lights, cfg, "kernel")
+    assert pick(many, lights, cfg, "kernel")
     assert not pick(demo, lights, deep, "eager")
 
     calls = []
@@ -185,14 +186,15 @@ def test_pick_pathtracer_routes(monkeypatch):
     monkeypatch.setattr(estimator, "pathtrace_frame",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     before = pathtrace.pathtrace_frame_plain.launches
-    for scene, c, renderer in [(demo, deep, "eager"), (many, cfg, "auto")]:
+    for scene, c, renderer in [(demo, deep, "eager"), (many, cfg, "eager"),
+                               (many, cfg, "auto")]:
         sink = io.BytesIO()
         app.run_animation(c, "colors", max_frames=1, interactive=False,
                           scene=scene, stream=sink, renderer=renderer,
                           pathtrace=True)
         chip_smoke.validate_stream(sink.getvalue(), 8, 4, 1)
     assert len(calls) == 2
-    assert pathtrace.pathtrace_frame_plain.launches == before
+    assert pathtrace.pathtrace_frame_plain.launches == before + 1
 
 
 def test_cli_still_pathtrace_writes_ppm(tmp_path):

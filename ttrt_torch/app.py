@@ -75,9 +75,9 @@ from ttrt_torch.term.display import (KeyboardInput, SigintFlag,
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
                                      encode_ansi_host, encode_rgb_frame)
 from ttrt_torch.utils.logging import log
-from ttrt_torch.utils.profiling import (SETUP, StageTimers, note_import,
-                                        profile_trace, recording, span,
-                                        touch_device)
+from ttrt_torch.utils.profiling import (PATH_STEPS, SETUP, StageTimers,
+                                        note_import, profile_trace,
+                                        recording, span, touch_device)
 
 CAMERA_MOVE_SPEED = 0.1  # meters per keypress (reference stub's constant)
 _KEY_MOVES = {"up": (1, 1.0), "down": (1, -1.0), "left": (0, -1.0),
@@ -167,26 +167,32 @@ def _check_f64_mesh_on_cpu(scene, cfg: RenderConfig) -> None:
 
 
 def _pick_pathtracer(scene, lights, cfg: RenderConfig,
-                     renderer: str = "auto") -> bool:
+                     renderer: str = "auto", mesh=None) -> bool:
     """The ``--pathtrace`` path (``ttrt.app.build_pathtrace_frame_step``,
-    app.py:73-80): True for the path-tracing kernel, False for the eager
+    app.py:73-80): True for a path-tracing kernel, False for the eager
     estimator (``render.pathtrace.pathtrace_frame``).
 
-    - ``eager``, or ``auto`` in float64, on a ``MeshScene`` or under an
-      image cubemap (the kernel is procedural-sky only, as JAX's): the
-      estimator;
-    - otherwise the kernel (the CUDA kernel for CUDA tensors, its plain
-      version for CPU tensors). A config outside the kernel's gates is
-      refused here, before the first frame, with a pointer to
-      ``--renderer eager``."""
+    - ``eager``, or ``auto`` in float64, under an image cubemap (the
+      kernels are procedural-sky only, as JAX's) or on a ``MeshScene``
+      over a ``mesh`` (``--mesh``): the estimator;
+    - otherwise a kernel: the demo scene's, or a ``MeshScene``'s
+      ``pathtrace_mesh_kernel`` (the CUDA kernel for CUDA tensors, its
+      plain version for CPU tensors). A config outside the kernels'
+      gates, or ``kernel`` on a ``MeshScene`` over a mesh, is refused
+      here, before the first frame, with a pointer to ``--renderer
+      eager``."""
     if renderer not in RENDERERS:
         raise ConfigError(f"unknown renderer {renderer!r}")
+    many_over_mesh = mesh is not None and isinstance(scene, MeshScene)
     if renderer == "eager" or (renderer == "auto" and (
-            cfg.dtype != torch.float32 or isinstance(scene, MeshScene)
+            cfg.dtype != torch.float32 or many_over_mesh
             or scene.skybox.procedural is None)):
         _check_f64_mesh_on_cpu(scene, cfg)
         return False
     try:
+        if many_over_mesh:
+            raise ConfigError("--pathtrace --mesh shards the demo scene's "
+                              "path-tracing kernel only")
         pathtrace.check_supported(scene, lights, cfg)
     except ConfigError as e:
         raise ConfigError(f"{e} (--renderer eager runs the Monte-Carlo "
@@ -376,7 +382,7 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
     ``_finite_check``."""
     device = scene.spheres.radius.device
     lights = estimator.default_area_lights(cfg, device)
-    use_kernel = _pick_pathtracer(scene, lights, cfg, renderer)
+    use_kernel = _pick_pathtracer(scene, lights, cfg, renderer, mesh)
     if mesh is not None:
         sharding.check_pathtrace_mesh(cfg, mesh)
     enc = _encoder(cfg, encode, device, mesh)
@@ -386,6 +392,10 @@ def build_pathtrace_frame_step(scene, cfg: RenderConfig,
         with span("pose"):
             s = _posed(scene, cfg, t, cam_offset, device)
         fseed = pathtrace.frame_seed(seed, t)
+        if use_kernel:
+            PATH_STEPS.kernel += 1
+        else:
+            PATH_STEPS.estimator += 1
         if mesh is not None and use_kernel:
             fb = sharding.pathtrace_frame_sharded_kernel(s, lights, cfg,
                                                          fseed, mesh)
@@ -943,7 +953,8 @@ def main(argv=None) -> int:
                    help="render path: a kernel or the eager integrator "
                         "(with --pathtrace: the eager estimator); auto "
                         "picks the kernel unless --f64 (or, with "
-                        "--pathtrace, --scene many or an image skybox)")
+                        "--pathtrace, an image skybox or --scene many "
+                        "over --mesh)")
     args = p.parse_args(argv)
 
     if args.spp < 1 or args.width < 1 or args.height < 1 or args.bounces < 1:

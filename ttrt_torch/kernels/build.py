@@ -146,6 +146,15 @@ def load() -> ctypes.CDLL:
     # n_sph, n_al, W, H, N, reduce_sum, out[10]
     lib.ttrt_pathtrace_layout.restype = ctypes.c_int
     lib.ttrt_pathtrace_layout.argtypes = [i] * 6 + [p]
+    # cam, al, n_al, 9 sphere/triangle tables, qbox, order, kb_sph,
+    # kb_tri, W, H, N, bounce_limit, sky_kind, sky_dim, bilinear,
+    # reduce_sum, seed, out_rgb, out_count, stream
+    lib.ttrt_pathtrace_mesh.restype = ctypes.c_int
+    lib.ttrt_pathtrace_mesh.argtypes = ([p, p, i] + [p] * 11 + [i] * 10
+                                        + [ctypes.c_uint32] + [p, p, p])
+    # kb_sph, kb_tri, n_al, W, H, N, out[10]
+    lib.ttrt_pathtrace_mesh_layout.restype = ctypes.c_int
+    lib.ttrt_pathtrace_mesh_layout.argtypes = [i] * 6 + [p]
     return lib
 
 

@@ -14,6 +14,13 @@
 // (:70, launched at :361 by cluster_nearest), modes "cull" and "dense". Its
 // wrapper is ttrt_torch/kernels/mesh.py::cluster_nearest_cuda, its plain
 // version the dense tester ttrt_torch/mesh/dense.py::dense_nearest.
+// pathtrace_mesh_kernel path-traces a MeshScene (--pathtrace --scene
+// many): pathtrace.cuh's trace_path, the demo path tracer's estimator and
+// random stream unchanged, over this file's MeshTracer, with the fused
+// kernel's staged boxes and sample threads. The JAX package has no such
+// kernel (its many-object path tracer is the eager estimator); its plain
+// version is ttrt_torch/kernels/pathtrace.py::pathtrace_frame_plain on a
+// MeshScene, which traces every object with the fused kernel's plain tests.
 //
 // Design of mesh_fused_kernel: one thread per (pixel, sample). A pixel's S
 // samples run on S neighbouring threads of one block (a whole band's
@@ -110,6 +117,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "pathtrace.cuh"
 
 namespace {
 
@@ -467,6 +475,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The boxes the walk reads: staged in shared memory (StagedBoxes) or in
+// place (TableBoxes).
+template <bool SMEM_BOXES>
+using Boxes =
+    typename std::conditional<SMEM_BOXES, StagedBoxes, TableBoxes>::type;
+
+// With SMEM_BOXES, starts the block's copy of the quarter boxes, gathered
+// into the frame's visit order, and of the order itself to the start of
+// its dynamic shared memory `smem` (staged_box_bytes), and points `bx` at
+// them; the caller waits with cp_async_wait_all() and a barrier. Returns
+// the first float of shared memory past them.
+template <bool SMEM_BOXES>
+__device__ __forceinline__ float* stage_boxes(const MeshGeom& g,
+                                              float4* smem,
+                                              Boxes<SMEM_BOXES>& bx) {
+  if constexpr (SMEM_BOXES) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int K = g.kb_sph + g.kb_tri;
+    constexpr int ROW4 = 2 * QUARTERS;  // float4s of a subcluster's boxes
+    int* order = reinterpret_cast<int*>(smem + ROW4 * K);
+    for (int j = tid; j < ROW4 * K; j += nt)
+      cp_async16(smem + j, g.qbox + ROW4 * g.order[j / ROW4] + j % ROW4);
+    for (int i = tid; i < K; i += nt) order[i] = g.order[i];
+    bx.box = smem;
+    bx.order = order;
+    return reinterpret_cast<float*>(order + ((K + 3) & ~3));
+  } else {
+    return reinterpret_cast<float*>(smem);
+  }
+}
+
 // Dynamic shared memory of a block, in this order: with SMEM_BOXES the
 // quarter boxes gathered into the frame's visit order and the order
 // itself (staged_box_bytes); the sample sums (common.cuh::SampleSums);
@@ -482,23 +521,10 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
                   float scale, int smem_lights,
                   float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
-  using Boxes =
-      typename std::conditional<SMEM_BOXES, StagedBoxes, TableBoxes>::type;
   extern __shared__ float4 smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int K = g.kb_sph + g.kb_tri;
-  Boxes bx{g.qbox, g.order};
-  float* tail = reinterpret_cast<float*>(smem);
-  if (SMEM_BOXES) {
-    constexpr int ROW4 = 2 * QUARTERS;  // float4s of a subcluster's boxes
-    int* order = reinterpret_cast<int*>(smem + ROW4 * K);
-    for (int j = tid; j < ROW4 * K; j += nt)
-      cp_async16(smem + j, g.qbox + ROW4 * g.order[j / ROW4] + j % ROW4);
-    for (int i = tid; i < K; i += nt) order[i] = g.order[i];
-    bx.box = smem;
-    bx.order = order;
-    tail = reinterpret_cast<float*>(order + ((K + 3) & ~3));
-  }
+  Boxes<SMEM_BOXES> bx{g.qbox, g.order};
+  float* tail = stage_boxes<SMEM_BOXES>(g, smem, bx);
   const SampleSums sm = sample_sums<1>(tail, S);
   const float* cam = cam_in;
   Lights L;
@@ -521,7 +547,7 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
   if (SMEM_BOXES) cp_async_wait_all();
   __syncthreads();
 
-  const MeshTracer<Boxes> tr{g, bx};
+  const MeshTracer<Boxes<SMEM_BOXES>> tr{g, bx};
   const int n_lights = n_dl + n_pl;
   sample_threads<ROUNDS, 1>(
       sm, S, W, n_rows, n_samples,
@@ -593,6 +619,97 @@ cudaError_t fused_shape(int K, int n_dl, int n_pl, int W, int n_rows,
                            (sh.smem_lights ? light_bytes : 0),
                        1, optin, FUSED_BLOCK, FUSED_MAX_THREADS,
                        (long long)W * n_rows, sh);
+    if (err != cudaSuccess) return err;
+    if (sh.resident > 0) return cudaSuccess;
+    if (!sh.smem_boxes) return cudaErrorInvalidConfiguration;
+  }
+}
+
+// The launch shape of pathtrace_mesh_kernel: a pixel's samples on S <=
+// MAX_ROUND threads of one block; the block is the smallest of
+// PT_MESH_BLOCK, 2 * PT_MESH_BLOCK, ... PT_MESH_MAX_THREADS that keeps the
+// most warps resident on an SM (common.cuh::pick_block), with the fused
+// kernel's launch bounds (64 registers a thread).
+constexpr int PT_MESH_BLOCK = 128;
+constexpr int PT_MESH_MAX_THREADS = 512;
+constexpr int PT_MESH_MIN_BLOCKS = 2;
+
+// The path-traced W x H x N frame of a MeshScene: pathtrace.cuh's
+// trace_path over the MeshTracer, a pixel's samples on S threads of one
+// block (common.cuh::sample_threads), each pixel's sample sum (reduce_sum)
+// or its mean clipped to [0, 1] written with its two counts. Dynamic
+// shared memory, in this order: with SMEM_BOXES the quarter boxes in the
+// frame's visit order and the order (stage_boxes); the sample sums with
+// two count channels; the camera and the area lights. ROUNDS = false is
+// the one-round launch (S == N).
+template <bool SMEM_BOXES, bool ROUNDS>
+__global__ void __launch_bounds__(PT_MESH_MAX_THREADS, PT_MESH_MIN_BLOCKS)
+pathtrace_mesh_kernel(const float* __restrict__ cam_in,
+                      const float* __restrict__ al_in, int n_al, MeshGeom g,
+                      int W, int H, int N, int S, int bounce_limit, Sky sky,
+                      int reduce_sum, uint32_t seed,
+                      float* __restrict__ out_rgb,
+                      int* __restrict__ out_count) {
+  extern __shared__ float4 smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  Boxes<SMEM_BOXES> bx{g.qbox, g.order};
+  float* tail = stage_boxes<SMEM_BOXES>(g, smem, bx);
+  const SampleSums sm = sample_sums<2>(tail, S);
+  float* cam = sm.end;
+  for (int i = tid; i < CAM_FLOATS + AL_FLOATS * n_al; i += nt)
+    cam[i] = i < CAM_FLOATS ? cam_in[i] : al_in[i - CAM_FLOATS];
+  if (SMEM_BOXES) cp_async_wait_all();
+  __syncthreads();
+
+  const MeshTracer<Boxes<SMEM_BOXES>> tr{g, bx};
+  const float* al = cam + CAM_FLOATS;
+  const PathWrite<true> sum{N, out_rgb, out_count};
+  const PathWrite<false> mean{N, out_rgb, out_count};
+  sample_threads<ROUNDS, 2>(
+      sm, S, W, H, N,
+      [&](int col, int row, int k, float& pr, float& pg, float& pb) {
+        return trace_path(tr, cam, al, n_al, sky, col, row, k, W, H,
+                          bounce_limit, seed, pr, pg, pb);
+      },
+      [&](int pix, int n_pixels, float r, float g_, float b,
+          const Counts<2>& n) {
+        if (reduce_sum)
+          sum(pix, n_pixels, r, g_, b, n);
+        else
+          mean(pix, n_pixels, r, g_, b, n);
+      });
+}
+
+using PathMeshKernel = decltype(&pathtrace_mesh_kernel<true, true>);
+
+PathMeshKernel pathtrace_mesh_kernel_for(bool smem_boxes, bool rounds) {
+  return smem_boxes ? (rounds ? pathtrace_mesh_kernel<true, true>
+                              : pathtrace_mesh_kernel<true, false>)
+                    : (rounds ? pathtrace_mesh_kernel<false, true>
+                              : pathtrace_mesh_kernel<false, false>);
+}
+
+struct PathMeshShape : SampleShape {
+  bool smem_boxes;
+};
+
+// The boxes are staged when they fit in a block beside the sample sums,
+// the camera and the lights; else the kernel reads them in place.
+cudaError_t pathtrace_mesh_shape(int K, int n_al, int W, int H, int N,
+                                 PathMeshShape& sh) {
+  sample_rounds(N, sh);
+  const size_t cam_bytes =
+      sizeof(float) * ((size_t)CAM_FLOATS + (size_t)AL_FLOATS * n_al);
+  for (sh.smem_boxes = true;; sh.smem_boxes = false) {
+    const PathMeshKernel kernel =
+        pathtrace_mesh_kernel_for(sh.smem_boxes, sh.rounds);
+    int optin = 0;
+    cudaError_t err = allow_max_smem(kernel, optin);
+    if (err == cudaSuccess)
+      err = pick_block(kernel,
+                       (sh.smem_boxes ? staged_box_bytes(K) : 0) + cam_bytes,
+                       2, optin, PT_MESH_BLOCK, PT_MESH_MAX_THREADS,
+                       (long long)W * H, sh);
     if (err != cudaSuccess) return err;
     if (sh.resident > 0) return cudaSuccess;
     if (!sh.smem_boxes) return cudaErrorInvalidConfiguration;
@@ -755,6 +872,58 @@ int ttrt_cluster_nearest_layout(int n, int* out) {
                        attr.numRegs, (int)attr.localSizeBytes};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
   return 0;
+}
+
+// Path-trace the W x H x N frame of a MeshScene on `stream`
+// (pathtrace_mesh_kernel): `cam` is the packed camera, `al` the n_al area
+// lights (8 floats each), the tables and the visit order `order` as
+// ttrt_mesh_fused's. Writes the (3, H, W) clipped sample mean, or with
+// `reduce_sum` the unclipped sample sum, and the (2, H, W) counts:
+// nearest-hit traces | hits << 16 and the unblocked shadow rays. Returns
+// cudaGetLastError() (0 on success).
+int ttrt_pathtrace_mesh(const float* cam, const float* al, int n_al,
+                        const float* sph, const float* sph_mat,
+                        const float* sph_spec, const int* sph_id,
+                        const float* tri, const float* tri_nrm,
+                        const float* tri_mat, const float* tri_spec,
+                        const int* tri_id, const float* qbox,
+                        const int* order, int kb_sph, int kb_tri, int W,
+                        int H, int N, int bounce_limit, int sky_kind,
+                        int sky_dim, int bilinear, int reduce_sum,
+                        uint32_t seed, float* out_rgb, int* out_count,
+                        void* stream) {
+  if (kb_sph < 0 || kb_tri < 0 || order == nullptr ||
+      !path_args_ok(n_al, W, H, N, bounce_limit, sky_kind, sky_dim))
+    return (int)cudaErrorInvalidValue;
+  const Sky sky{sky_kind, sky_dim, bilinear != 0, nullptr};
+  const MeshGeom g =
+      make_geom(sph, sph_mat, sph_spec, sph_id, tri, tri_nrm, tri_mat,
+                tri_spec, tri_id, qbox, order, kb_sph, kb_tri, true);
+  PathMeshShape sh;
+  const cudaError_t err =
+      pathtrace_mesh_shape(kb_sph + kb_tri, n_al, W, H, N, sh);
+  if (err != cudaSuccess) return (int)err;
+  pathtrace_mesh_kernel_for(sh.smem_boxes, sh.rounds)<<<
+      sh.blocks, sh.threads, sh.smem, (cudaStream_t)stream>>>(
+      cam, al, n_al, g, W, H, N, sh.samples, bounce_limit, sky, reduce_sum,
+      seed, out_rgb, out_count);
+  return (int)cudaGetLastError();
+}
+
+// The launch shape ttrt_pathtrace_mesh takes for a frame of these sizes,
+// into out[10] (common.cuh::write_layout; `staged`: the boxes). Returns a
+// CUDA error code (0 on success).
+int ttrt_pathtrace_mesh_layout(int kb_sph, int kb_tri, int n_al, int W,
+                               int H, int N, int* out) {
+  if (kb_sph < 0 || kb_tri < 0 || n_al < 0 || W < 1 || H < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  PathMeshShape sh;
+  const cudaError_t err =
+      pathtrace_mesh_shape(kb_sph + kb_tri, n_al, W, H, N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return write_layout(sh, sh.smem_boxes,
+                      pathtrace_mesh_kernel_for(sh.smem_boxes, sh.rounds),
+                      out);
 }
 
 }  // extern "C"

@@ -110,6 +110,39 @@ def _shadow_blocked(sph, tri, px, py, pz, lx, ly, lz, tmax):
     return out
 
 
+def mesh_trace(sph, tri, ox, oy, oz, dx, dy, dz) -> _TraceOut:
+    """Nearest-hit trace over every object of ``pack_rows``' id-ordered
+    rows ``sph`` and ``tri`` (the lowest id wins an exact tie), with the
+    demo trace's hit fixups (``kernels/render.py::_trace``): the plain
+    version of the kernels' ``MeshTracer::trace``."""
+    n_sph = sph.shape[0]
+    gh = nearest_arrays(sph[:, :4], tri[:, :9], n_sph,
+                        Vec3(ox, oy, oz), Vec3(dx, dy, dz))
+    hit = gh.obj >= 0
+    is_tri = gh.obj >= n_sph
+    t = torch.where(hit, gh.t, 0.0)
+    px, py, pz = _fma(t, dx, ox), _fma(t, dy, oy), _fma(t, dz, oz)
+    s = sph[torch.clamp(gh.obj, 0, max(n_sph - 1, 0)).long()]
+    tr = tri[torch.clamp(gh.obj - n_sph, 0,
+                         max(tri.shape[0] - 1, 0)).long()]
+    pick = lambda i, j: torch.where(is_tri, tr[:, j], s[:, i])  # noqa: E731
+    nrx = torch.where(is_tri, tr[:, 9], px - s[:, 0])
+    nry = torch.where(is_tri, tr[:, 10], py - s[:, 1])
+    nrz = torch.where(is_tri, tr[:, 11], pz - s[:, 2])
+    tox, toy, toz = _normalize3(ox - px, oy - py, oz - pz)
+    eps = _F32_EPSILON
+    nx, ny, nz = _normalize3(torch.where(hit, nrx, dx),
+                             torch.where(hit, nry, dy),
+                             torch.where(hit, nrz, dz))
+    return _TraceOut(
+        hit,
+        torch.where(hit, _fma(tox, eps, px), ox),
+        torch.where(hit, _fma(toy, eps, py), oy),
+        torch.where(hit, _fma(toz, eps, pz), oz),
+        nx, ny, nz, pick(4, 12), pick(5, 13), pick(6, 14),
+        torch.where(hit, pick(7, 15), 0.0), pick(8, 16))
+
+
 def render_band_mesh_fused_plain(
     scene, cfg: RenderConfig, row_offset: float = 0.0,
     n_rows: Optional[int] = None, *, sample_offset: float = 0.0,
@@ -131,34 +164,9 @@ def render_band_mesh_fused_plain(
                                        torch.float32), DLIGHT_FLOATS)
         pl_vals = _tuples(pack_plights(scene.point_lights, torch.float32),
                           PLIGHT_FLOATS)
-    n_sph = sph.shape[0]
 
     def trace(ox, oy, oz, dx, dy, dz):
-        gh = nearest_arrays(sph[:, :4], tri[:, :9], n_sph,
-                            Vec3(ox, oy, oz), Vec3(dx, dy, dz))
-        hit = gh.obj >= 0
-        is_tri = gh.obj >= n_sph
-        t = torch.where(hit, gh.t, 0.0)
-        px, py, pz = _fma(t, dx, ox), _fma(t, dy, oy), _fma(t, dz, oz)
-        s = sph[torch.clamp(gh.obj, 0, max(n_sph - 1, 0)).long()]
-        tr = tri[torch.clamp(gh.obj - n_sph, 0,
-                             max(tri.shape[0] - 1, 0)).long()]
-        pick = lambda i, j: torch.where(is_tri, tr[:, j], s[:, i])  # noqa: E731
-        nrx = torch.where(is_tri, tr[:, 9], px - s[:, 0])
-        nry = torch.where(is_tri, tr[:, 10], py - s[:, 1])
-        nrz = torch.where(is_tri, tr[:, 11], pz - s[:, 2])
-        tox, toy, toz = _normalize3(ox - px, oy - py, oz - pz)
-        eps = _F32_EPSILON
-        nx, ny, nz = _normalize3(torch.where(hit, nrx, dx),
-                                 torch.where(hit, nry, dy),
-                                 torch.where(hit, nrz, dz))
-        return _TraceOut(
-            hit,
-            torch.where(hit, _fma(tox, eps, px), ox),
-            torch.where(hit, _fma(toy, eps, py), oy),
-            torch.where(hit, _fma(toz, eps, pz), oz),
-            nx, ny, nz, pick(4, 12), pick(5, 13), pick(6, 14),
-            torch.where(hit, pick(7, 15), 0.0), pick(8, 16))
+        return mesh_trace(sph, tri, ox, oy, oz, dx, dy, dz)
 
     def shadow_test(px, py, pz):
         return lambda lx, ly, lz, tmax: _shadow_blocked(

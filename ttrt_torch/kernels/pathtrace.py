@@ -5,7 +5,13 @@ wrapper and its plain PyTorch version (port of
 ``pathtrace_frame`` dispatches on the device of the scene's tensors: CPU
 tensors go through ``pathtrace_frame_plain``; CUDA tensors go through
 ``pathtrace_frame_cuda``, which launches the hand-written kernel in
-``csrc/pathtrace.cu`` or raises. There is no fallback from one to the other.
+``csrc/pathtrace.cu`` (the demo ``Scene``) or
+``csrc/mesh.cu::pathtrace_mesh_kernel`` (a ``MeshScene``), or raises. There
+is no fallback from one to the other. Both kernels run
+``csrc/pathtrace.cuh``'s estimator over their scene's tracer, and the plain
+version runs it over the demo scene's linear scan or over every object of
+the ``MeshScene``'s pack (the fused kernel's plain tests), which the
+kernel's culled walk equals bit for bit (the lowest id wins an exact tie).
 
 The estimator is the JAX kernel's ``_pathtrace_kernel``
 (pathtrace_pallas.py:101), per ray: next-event estimation (NEE) with one
@@ -39,17 +45,22 @@ kernel's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ttrt_torch.config import ConfigError, RenderConfig, constants
+from ttrt_torch.kernels.mesh_fused import (_shadow_blocked, mesh_trace,
+                                           order_subclusters)
 from ttrt_torch.kernels.render import (PLANE_FLOATS, SKY_KINDS, SPHERE_FLOATS,
                                        _dot3, _fma, _normalize3,
                                        _shadow_any_hit, _shadow_oc_terms,
-                                       RENDER_LAYOUT_KEYS, _trace, _tuples,
-                                       pack_scene, sky_color)
+                                       RENDER_LAYOUT_KEYS, _trace, _TraceOut,
+                                       _tuples, pack_camera, pack_scene,
+                                       sky_color)
+from ttrt_torch.mesh.clusters import pack_rows
+from ttrt_torch.mesh.scene import MeshScene
 from ttrt_torch.scene import Scene
 from ttrt_torch.utils.profiling import span
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
@@ -128,15 +139,20 @@ def check_supported(scene, lights, cfg: RenderConfig) -> None:
     """The gates of ``pathtrace_frame_pallas`` (pathtrace_pallas.py:
     345-360) and of the JAX app's kernel route (ttrt/app.py:73-80):
     float32, a procedural sky (the JAX kernel's only kind,
-    pathtrace_pallas.py:39-43), the demo ``Scene``, bounce_limit <= 10, at
-    most 10 area lights; and the CUDA kernel's own, spp x bounces <=
-    0x7FFF, because a pixel's work packs its nearest-hit traces | hits <<
-    16. Any sphere count is taken."""
+    pathtrace_pallas.py:39-43), bounce_limit <= 10, at most 10 area
+    lights; the demo ``Scene`` (any sphere count) or a ``MeshScene`` with
+    its cluster pack (``csrc/mesh.cu::pathtrace_mesh_kernel``, which JAX
+    does not have); and the CUDA kernels' own, spp x bounces <= 0x7FFF,
+    because a pixel's work packs its nearest-hit traces | hits << 16."""
     if cfg.dtype != torch.float32:
         raise ConfigError("the path-tracing kernel is float32-only")
-    if type(scene) is not Scene:
+    if isinstance(scene, MeshScene):
+        if scene.clusters is None:
+            raise ConfigError("the path-tracing kernel traces a MeshScene "
+                              "through its cluster pack")
+    elif type(scene) is not Scene:
         raise ConfigError("the path-tracing kernel traces the demo scene "
-                          "only")
+                          "or a MeshScene")
     if scene.skybox.procedural not in SKY_KINDS:
         raise ConfigError("the path-tracing kernel takes a procedural sky "
                           f"({', '.join(SKY_KINDS)})")
@@ -190,32 +206,108 @@ def _check_reduce(reduce: str) -> None:
         raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
 
 
-def _paths(scene: Scene, lights, cfg: RenderConfig, seed: int):
+class _DemoTracer(NamedTuple):
+    """The demo scene's trace and shadow test (``render._trace``,
+    ``_shadow_any_hit``: the linear scan of ``DemoTracer``) on every ray
+    of the frame, live or not."""
+
+    sph_vals: list
+    plane_vals: tuple
+
+    def trace(self, alive, ox, oy, oz, dx, dy, dz) -> _TraceOut:
+        return _trace(ox, oy, oz, dx, dy, dz, self.sph_vals, self.plane_vals,
+                      False)
+
+    def shadow(self, lit, hit: _TraceOut):
+        """The shadow test from ``hit``'s points, any direction and
+        ``tmax``."""
+        oc = _shadow_oc_terms(hit.px, hit.py, hit.pz, self.sph_vals)
+        return lambda lx, ly, lz, tmax: _shadow_any_hit(
+            hit.px, hit.py, hit.pz, lx, ly, lz, tmax, oc, self.plane_vals)
+
+
+def _scatter(at: torch.Tensor, n: int, v: torch.Tensor) -> torch.Tensor:
+    """(n,) zeros of ``v``'s dtype with ``v`` at the indices ``at``."""
+    out = v.new_zeros(n)
+    out[at] = v
+    return out
+
+
+class _MeshTracer(NamedTuple):
+    """A ``MeshScene``'s trace and shadow test over every object of its
+    pack (``mesh_fused.mesh_trace``, ``_shadow_blocked``: the fused
+    kernel's plain tests, the lowest id winning an exact tie), on the live
+    rays only, as the walk's plain version. The other rays read as misses
+    with zero fields, which the estimator masks."""
+
+    sph: torch.Tensor
+    tri: torch.Tensor
+
+    def trace(self, alive, ox, oy, oz, dx, dy, dz) -> _TraceOut:
+        live = torch.nonzero(alive)[:, 0]
+        hit = mesh_trace(self.sph, self.tri,
+                         *(v[live] for v in (ox, oy, oz, dx, dy, dz)))
+        return _TraceOut(*(_scatter(live, alive.shape[0], f) for f in hit))
+
+    def shadow(self, lit, hit: _TraceOut):
+        """The shadow test from the ``lit`` rays' hit points; the others
+        read unblocked."""
+        at = torch.nonzero(lit)[:, 0]
+        p = [v[at] for v in (hit.px, hit.py, hit.pz)]
+
+        def blocked(lx, ly, lz, tmax):
+            return _scatter(at, lit.shape[0], _shadow_blocked(
+                self.sph, self.tri, *p, lx[at], ly[at], lz[at], tmax[at]))
+
+        return blocked
+
+
+def _packed(scene, lights):
+    """(the packed camera, the area lights on the scene's device, the
+    tracer) of ``scene``."""
+    if isinstance(scene, MeshScene):
+        cam = pack_camera(scene.camera, torch.float32)
+        tracer = _MeshTracer(*pack_rows(scene.clusters))
+    else:
+        packed = pack_scene(scene, torch.float32)
+        cam = packed.cam
+        tracer = _DemoTracer(_tuples(packed.spheres, SPHERE_FLOATS),
+                             tuple(packed.plane[i]
+                                   for i in range(PLANE_FLOATS)))
+    return cam, pack_area_lights(lights).to(cam.device), tracer
+
+
+def _paths(scene, lights, cfg: RenderConfig, seed: int):
     """Every path of the frame, each bounce masked as in the JAX kernel:
     the per-ray radiance (3 sample-major (N*H*W,) tensors) and the work,
     (nearest-hit traces, hits, unblocked NEE shadow rays) as a (3,) int64
     tensor."""
-    packed = pack_scene(scene, torch.float32)
-    return _packed_paths(scene, packed,
-                         pack_area_lights(lights).to(packed.cam.device), cfg,
-                         seed)
+    return _traced_paths(*_packed(scene, lights), scene.skybox, cfg, seed)
 
 
-def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
-                  seed: int):
-    """``_paths`` of ``scene`` packed (``pack_scene``) with its area lights
-    ``al`` (``pack_area_lights``, on the scene's device)."""
+def _traced_paths(cam: torch.Tensor, al: torch.Tensor, tracer, skybox,
+                  cfg: RenderConfig, seed: int,
+                  rows: Optional[Sequence[int]] = None):
+    """``_paths`` from the packed camera ``cam``, the area lights ``al``
+    (``pack_area_lights``) and the scene's ``tracer`` (``_DemoTracer``,
+    ``_MeshTracer``) under ``skybox``: ``csrc/pathtrace.cuh::trace_path``
+    over the frame's rays, or with ``rows`` over those rows' rays only
+    (sample-major, each with its ray index in the whole frame)."""
     W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
     seed &= MASK32
-    cam = packed.cam
-    sph_vals = _tuples(packed.spheres, SPHERE_FLOATS)
-    plane_vals = tuple(packed.plane[i] for i in range(PLANE_FLOATS))
     al_vals = _tuples(al, AREA_LIGHT_FLOATS)
 
     # primary rays (pathtrace_pallas.py:144-168): the demo kernel's camera
     # math with a random jitter in [0, pixel)
     n_pixels = W * H
-    idx = torch.arange(n_pixels * N, device=cam.device, dtype=torch.int64)
+    if rows is None:
+        idx = torch.arange(n_pixels * N, device=cam.device,
+                           dtype=torch.int64)
+    else:
+        i64 = dict(device=cam.device, dtype=torch.int64)
+        pix = (torch.as_tensor(rows, **i64)[:, None] * W
+               + torch.arange(W, **i64)).reshape(-1)
+        idx = (torch.arange(N, **i64)[:, None] * n_pixels + pix).reshape(-1)
     pix = idx % n_pixels
     f32 = torch.float32
     col = (pix % W).to(f32)
@@ -244,7 +336,7 @@ def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
     unblocked = torch.zeros_like(nearest)
 
     for b in range(cfg.bounce_limit):
-        hit = _trace(ox, oy, oz, dx, dy, dz, sph_vals, plane_vals, False)
+        hit = tracer.trace(alive, ox, oy, oz, dx, dy, dz)
         miss_now = alive & ~hit.is_hit
         add = alive & hit.is_hit
         nearest = nearest + alive.sum()
@@ -252,7 +344,7 @@ def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
         sky_w = [torch.where(miss_now, t, s) for t, s in zip(tp, sky_w)]
 
         # next-event estimation: one surface sample on every area light
-        oc = _shadow_oc_terms(hit.px, hit.py, hit.pz, sph_vals)
+        blocked_by = tracer.shadow(add, hit)
         for li, (lpx, lpy, lpz, lr, lcr, lcg, lcb, lint) in enumerate(
                 al_vals):
             sx, sy, sz = _uniform_sphere(idx, seed, b, _NEE + 3 * li)
@@ -265,8 +357,7 @@ def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
                 _dot3(hit.nx, hit.ny, hit.nz, wix, wiy, wiz), 0.0)
             # any-hit occlusion cut just short of the light sample
             tmax = sqrt_rn(d2) * (1.0 - 5e-5)
-            blocked = _shadow_any_hit(hit.px, hit.py, hit.pz, wix, wiy, wiz,
-                                      tmax, oc, plane_vals)
+            blocked = blocked_by(wix, wiy, wiz, tmax)
             fall = torch.clamp_max(lint / torch.clamp_min(d2, 1e-8), 1.0)
             w = torch.where(blocked, 0.0, fall * ndotl)
             aw = torch.where(add, w, 0.0)
@@ -309,14 +400,15 @@ def _packed_paths(scene: Scene, packed, al: torch.Tensor, cfg: RenderConfig,
         alive = add & survive
 
     # the sky at the exit direction, weighted by the throughput at the miss
-    sky = sky_color(dx, dy, dz, scene.skybox, cfg.skybox_bilinear)
+    sky = sky_color(dx, dy, dz, skybox, cfg.skybox_bilinear)
     return ([_fma(s, k, r) for s, k, r in zip(sky_w, sky, rad)],
             torch.stack([nearest, hits, unblocked]))
 
 
-def pathtrace_frame_plain(scene: Scene, lights, cfg: RenderConfig,
+def pathtrace_frame_plain(scene, lights, cfg: RenderConfig,
                           seed: int, *, count_rays: bool = True,
-                          reduce: str = "mean"
+                          reduce: str = "mean",
+                          rows: Optional[Sequence[int]] = None
                           ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """The kernel's math in plain PyTorch on the whole (N*H*W,) ray batch.
     Returns the (H, W) frame (the per-pixel mean clipped to [0, 1], or
@@ -324,17 +416,20 @@ def pathtrace_frame_plain(scene: Scene, lights, cfg: RenderConfig,
     when ``count_rays``, the frame's work as a (3,) int64 tensor:
     nearest-hit traces, hits, and the NEE shadow rays that found their
     light unblocked. Every hit casts one NEE shadow ray a light, so the
-    frame traces ``nearest + hits * n_lights`` rays (``total_traces``)."""
+    frame traces ``nearest + hits * n_lights`` rays (``total_traces``).
+    ``rows`` renders those rows of the frame only, (len(rows), W), with
+    their work."""
     check_supported(scene, lights, cfg)
     _check_reduce(reduce)
     pathtrace_frame_plain.launches += 1
     with span("pack"):
-        packed = pack_scene(scene, torch.float32)
-        al = pack_area_lights(lights).to(packed.cam.device)
+        cam, al, tracer = _packed(scene, lights)
     with span("launch"):
-        color, work = _packed_paths(scene, packed, al, cfg, seed)
-        W, H, N = cfg.width, cfg.height, cfg.rays_per_pixel
-        fb = Vec3(*(_reduce_samples(c, N, H, W, reduce) for c in color))
+        color, work = _traced_paths(cam, al, tracer, scene.skybox, cfg, seed,
+                                    rows)
+        W, N = cfg.width, cfg.rays_per_pixel
+        n_rows = cfg.height if rows is None else len(rows)
+        fb = Vec3(*(_reduce_samples(c, N, n_rows, W, reduce) for c in color))
     return fb, work if count_rays else None
 
 
@@ -353,46 +448,98 @@ def total_traces(work: torch.Tensor, n_lights: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
+def _device_lights(lights, device) -> torch.Tensor:
+    """``pack_area_lights(lights)``, which must be on ``device``."""
+    al = pack_area_lights(lights)
+    if al.device != device:
+        raise ValueError("the area lights and the scene must be on one "
+                         f"device, got {al.device} and {device}")
+    return al
+
+
+def _outputs(cfg: RenderConfig, device):
+    """The kernels' (3, H, W) frame and (2, H, W) counts, uninitialized."""
+    H, W = cfg.height, cfg.width
+    return (torch.empty((3, H, W), dtype=torch.float32, device=device),
+            torch.empty((2, H, W), dtype=torch.int32, device=device))
+
+
+def _launch_demo(scene: Scene, lights, cfg: RenderConfig, seed: int,
+                 reduce: str):
+    """``ttrt_pathtrace`` (csrc/pathtrace.cu) on the demo scene, its
+    camera, spheres, plane and lights in one buffer: (its return code,
+    the frame, the counts)."""
+    from ttrt_torch.kernels import build
+
+    with span("pack"):
+        packed = pack_scene(scene, torch.float32)
+        al = _device_lights(lights, packed.cam.device)
+        buf = torch.cat([packed.cam, packed.spheres, packed.plane,
+                         al]).contiguous()
+    with span("launch"):
+        lib = build.load()
+        out, counts = _outputs(cfg, buf.device)
+        return lib.ttrt_pathtrace(
+            buf.data_ptr(), scene.spheres.count, lights.count, cfg.width,
+            cfg.height, cfg.rays_per_pixel, cfg.bounce_limit,
+            SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
+            int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
+            out.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(buf.device).cuda_stream), out, counts
+
+
+def _launch_mesh(scene: MeshScene, lights, cfg: RenderConfig, seed: int,
+                 reduce: str):
+    """``ttrt_pathtrace_mesh`` (csrc/mesh.cu::pathtrace_mesh_kernel) on a
+    ``MeshScene``: its pack's kernel tables and the per-frame visit order
+    of ``render_band_mesh_fused_cuda``, the packed camera and lights; as
+    ``_launch_demo``."""
+    from ttrt_torch.kernels import build
+
+    pack, tab = scene.clusters, scene.clusters.tables
+    with span("pack"):
+        order = order_subclusters(pack, scene.camera.frame.origin)
+        cam = pack_camera(scene.camera, torch.float32).contiguous()
+        al = _device_lights(lights, cam.device)
+    with span("launch"):
+        lib = build.load()
+        out, counts = _outputs(cfg, cam.device)
+        return lib.ttrt_pathtrace_mesh(
+            cam.data_ptr(), al.data_ptr(), lights.count,
+            tab.sph.data_ptr(), tab.sph_mat.data_ptr(),
+            tab.sph_spec.data_ptr(), tab.sph_id.data_ptr(),
+            tab.tri.data_ptr(), tab.tri_nrm.data_ptr(),
+            tab.tri_mat.data_ptr(), tab.tri_spec.data_ptr(),
+            tab.tri_id.data_ptr(), tab.qbox.data_ptr(), order.data_ptr(),
+            tab.kb_sph, tab.kb_tri, cfg.width, cfg.height,
+            cfg.rays_per_pixel, cfg.bounce_limit,
+            SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
+            int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
+            out.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(cam.device).cuda_stream), out, counts
+
+
+def pathtrace_frame_cuda(scene, lights, cfg: RenderConfig, seed: int,
                          *, count_rays: bool = True, reduce: str = "mean"
                          ) -> Tuple[Vec3, Optional[torch.Tensor]]:
-    """Path-trace one frame with the CUDA kernel (csrc/pathtrace.cu): one
-    thread per (pixel, sample), a pixel's samples in one block and added
-    there in sample order; writes the (3, H, W) clipped sample mean (or
-    with ``reduce='sum'`` the unclipped sample sum) and the pixel's work,
+    """Path-trace one frame with a CUDA kernel: the demo scene's
+    (csrc/pathtrace.cu) or a ``MeshScene``'s
+    (csrc/mesh.cu::pathtrace_mesh_kernel, the quarter boxes staged in
+    shared memory in the frame's visit order). One thread per (pixel,
+    sample), a pixel's samples in one block and added there in sample
+    order; writes the (3, H, W) clipped sample mean (or with
+    ``reduce='sum'`` the unclipped sample sum) and the pixel's work,
     nearest-hit traces | hits << 16 and the unblocked NEE shadow rays
     (``pathtrace_layout`` gives the launch shape); the frame's work is
     ``pathtrace_frame_plain``'s. Raises on anything the kernel does not
     take, CPU tensors included."""
-    from ttrt_torch.kernels import build
-
     check_supported(scene, lights, cfg)
     _check_reduce(reduce)
-    with span("pack"):
-        packed = pack_scene(scene, torch.float32)
-        al = pack_area_lights(lights)
-        if al.device != packed.cam.device:
-            raise ValueError(
-                "the area lights and the scene must be on one device, got "
-                f"{al.device} and {packed.cam.device}")
-        buf = torch.cat([packed.cam, packed.spheres, packed.plane,
-                         al]).contiguous()
-    if buf.device.type != "cuda":
-        raise ValueError(
-            f"pathtrace_frame_cuda needs CUDA tensors, got {buf.device}")
-    n_sph, n_al = scene.spheres.count, lights.count
-    H, W, N = cfg.height, cfg.width, cfg.rays_per_pixel
-    with span("launch"):
-        lib = build.load()
-        out = torch.empty((3, H, W), dtype=torch.float32, device=buf.device)
-        counts = torch.empty((2, H, W), dtype=torch.int32, device=buf.device)
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        rc = lib.ttrt_pathtrace(
-            buf.data_ptr(), n_sph, n_al, W, H, N, cfg.bounce_limit,
-            SKY_KINDS[scene.skybox.procedural], scene.skybox.dim,
-            int(cfg.skybox_bilinear), int(reduce == "sum"), seed & MASK32,
-            out.data_ptr(), counts.data_ptr(), stream,
-        )
+    dev = scene.spheres.radius.device
+    if dev.type != "cuda":
+        raise ValueError(f"pathtrace_frame_cuda needs CUDA tensors, got {dev}")
+    launch = _launch_mesh if isinstance(scene, MeshScene) else _launch_demo
+    rc, out, counts = launch(scene, lights, cfg, seed, reduce)
     if rc != 0:
         raise RuntimeError(
             f"path-tracing kernel launch failed: CUDA error {rc}")
@@ -408,24 +555,32 @@ def pathtrace_frame_cuda(scene: Scene, lights, cfg: RenderConfig, seed: int,
 pathtrace_frame_cuda.launches = 0
 
 
-def pathtrace_layout(scene: Scene, lights, cfg: RenderConfig,
+def pathtrace_layout(scene, lights, cfg: RenderConfig,
                      reduce: str = "mean") -> dict:
     """The launch shape ``pathtrace_frame_cuda`` takes
-    (``ttrt_pathtrace_layout``), with ``render_layout``'s keys: the sample
-    threads of a pixel, pixels, threads and dynamic shared bytes of a
-    block, the blocks, whether the scene is staged in shared memory, the
-    blocks an SM holds and the SMs (hence ``waves``), and the kernel's
-    registers and local (spill) bytes a thread. Needs a CUDA device."""
+    (``ttrt_pathtrace_layout``, or ``ttrt_pathtrace_mesh_layout`` for a
+    ``MeshScene``), with ``render_layout``'s keys: the sample threads of a
+    pixel, pixels, threads and dynamic shared bytes of a block, the
+    blocks, whether the scene (a ``MeshScene``: its quarter boxes) is
+    staged in shared memory, the blocks an SM holds and the SMs (hence
+    ``waves``), and the kernel's registers and local (spill) bytes a
+    thread. Needs a CUDA device."""
     from ttrt_torch.kernels import build
 
     _check_reduce(reduce)
+    if isinstance(scene, MeshScene):
+        tab = scene.clusters.tables
+        return build.layout(
+            "ttrt_pathtrace_mesh_layout", RENDER_LAYOUT_KEYS, tab.kb_sph,
+            tab.kb_tri, lights.count, cfg.width, cfg.height,
+            cfg.rays_per_pixel)
     return build.layout(
         "ttrt_pathtrace_layout", RENDER_LAYOUT_KEYS, scene.spheres.count,
         lights.count, cfg.width, cfg.height, cfg.rays_per_pixel,
         int(reduce == "sum"))
 
 
-def pathtrace_frame(scene: Scene, lights, cfg: RenderConfig, seed: int, *,
+def pathtrace_frame(scene, lights, cfg: RenderConfig, seed: int, *,
                     count_rays: bool = True, reduce: str = "mean"
                     ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """Path-trace one frame on the device that holds the scene: the plain

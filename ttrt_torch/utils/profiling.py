@@ -16,6 +16,9 @@ The reference's only instrumentation is the fps printout
     end of its first frame's write (``SetupTimers``).
   - STEPS: how the running loop's frame steps on a CUDA device ran:
     replayed from a captured CUDA graph, or eagerly (``StepCounts``).
+  - PATH_STEPS: the route each of the running loop's path-traced frame
+    steps took: a path-tracing kernel, or the eager estimator
+    (``PathStepCounts``).
   - profile_trace: a torch.profiler trace of CPU and CUDA activity around
     a block, written as a Chrome trace (--profile DIR in the CLI).
 """
@@ -112,14 +115,32 @@ class StepCounts:
 STEPS = StepCounts()
 
 
+class PathStepCounts:
+    """The path-traced frame steps of the running loop (``--pathtrace``)
+    by route, on any device: ``kernel``, each through a path-tracing
+    kernel (its plain version on the CPU), and ``estimator``, each through
+    the eager Monte-Carlo estimator."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.kernel = 0
+        self.estimator = 0
+
+
+PATH_STEPS = PathStepCounts()
+
+
 @contextlib.contextmanager
 def recording(timers) -> Iterator[None]:
     """Make ``timers`` (anything with ``stage(name)``) the recorder of
     ``span`` for the block, then restore the one installed before. The
-    block is a frame loop: ``STEPS`` starts anew with it and keeps its
-    counts after it, until the next loop."""
+    block is a frame loop: ``STEPS`` and ``PATH_STEPS`` start anew with it
+    and keep their counts after it, until the next loop."""
     global _recorder
     STEPS.reset()
+    PATH_STEPS.reset()
     saved, _recorder = _recorder, timers
     try:
         yield
