@@ -235,10 +235,15 @@ render and path-tracing kernels above):
   PH. the physics tier, float32: 120 frames of the demo drop (4 substeps
       of 1/60 s) and 40 steps of two spheres head-on, each run twice on
       the card (equal bits) and once on the CPU (within PHYSICS_TOL), the
-      head-on world's pair touching; the drop's frames 0, 30, ..., 120
+      head-on world's pair touching; the physics step kernel against the
+      eager step on the card, every leaf of 120 drop frames bit for bit,
+      and against benchmark/reference/physics.py's CPU step through frame
+      8,000; the drop's frames 0, 30, ..., 120
       rendered by render_frame_cuda and render_frame_plain, bit for bit;
-      the step's time, its ATen ops and CUDA kernels a frame; 60 frames
-      of run_physics (the stage split, physics apart); python -m
+      the step's time through the kernel and the eager step, their ATen
+      ops and CUDA kernels a frame, the kernel's launch and ptxas lines;
+      60 frames of run_physics (the stage split, physics apart, every
+      step through the kernel); python -m
       ttrt_torch --scene physics --frames 3 --checkpoint C twice, beside
       the step checks, the second resuming at the first's t.
   BT. render_frame_tiled in 4 bands against the whole eager frame at the
@@ -1502,6 +1507,9 @@ PHYSICS_WORLDS = ("demo", "head-on")
 # same IEEE operations in the same order (no atomics, no fused multiply-add)
 PHYSICS_TOL = 1e-6
 CKPT_FRAMES = 3  # frames each --checkpoint process of phase PH steps
+# frames of the drop the kernel is held to the benchmark's reference (about
+# 130 s of sim time: what a 51-s window of physics.drop steps at 150 fps)
+PHYSICS_REFERENCE_FRAMES = 8000
 
 
 def physics_world(world: str, device):
@@ -1525,6 +1533,108 @@ def physics_world(world: str, device):
          np.array([2.0, -2.0]), np.zeros(2), np.zeros(2), np.zeros(())],
         dtype=torch.float32, device=device)
     return state, params, 0.01, 1
+
+
+def physics_pile(n: int, device):
+    """(state, params, dt, substeps) of ``n`` spheres in float32 on
+    ``device``: radii drawn in [0.3, 0.6), stacked 1.1 apart in y over x,
+    z drawn in [-0.05, 0.05), velocities drawn in [-0.05, 0.05), dropped
+    under the demo's gravity onto its ground and walls with restitution
+    0.2, so that the spheres land and rest on each other: a world whose
+    pairs touch, of another size than the demo's six."""
+    import torch
+    from ttrt_torch.physics import demo, world as pworld
+
+    rng = np.random.default_rng(n)
+    x, z = rng.uniform(-0.05, 0.05, (2, n))
+    y = -1.0 + 1.1 * np.arange(n)
+    v = rng.uniform(-0.05, 0.05, (3, n))
+    params = pworld.default_params(rng.uniform(0.3, 0.6, n), device=device,
+                                   ground_y=-2.0, restitution=0.2,
+                                   bounds=4.0)
+    state = demo.physics_state_from_numpy([x, y, z, *v, np.zeros(())],
+                                          dtype=torch.float32,
+                                          device=device)
+    return state, params, 1.0 / 60.0, demo.SUBSTEPS
+
+
+def pair_touching(state, params, ii, jj):
+    """Whether a pair (ii, jj) of the state's spheres touches (their gap
+    under 1e-4): a 0-dim bool tensor on the state's device."""
+    p = state.pos.to_array()
+    gap = ((p[ii] - p[jj]).norm(dim=1)
+           - params.radius[ii] - params.radius[jj])
+    return (gap < 1e-4).any()
+
+
+def physics_bits(state):
+    """A state's 7 leaves as one int32 tensor of their float32 bits."""
+    import torch
+
+    leaves = [*state.pos, *state.vel, state.t.reshape(1)]
+    return torch.cat(leaves).contiguous().view(torch.int32)
+
+
+def physics_kernel_case(state, params, dt, substeps: int, frames: int
+                        ) -> dict:
+    """The world stepped ``frames`` frames by the physics step kernel and,
+    beside it, by the eager step (``physics_step_plain``), both on the card:
+    every frame's 7 leaves bit for bit. Returns the frames, the first frame
+    whose bits differ (None), the frames after which a pair of spheres
+    touched (gap under 1e-4) and the final t."""
+    import torch
+    from ttrt_torch.kernels import physics as kphysics
+    from ttrt_torch.physics import world as pworld
+
+    n = params.radius.shape[0]
+    ii, jj = (torch.as_tensor(a, device=state.t.device)
+              for a in pworld._pair_indices(n))
+    k = p = state
+    kernel_rows, plain_rows, touching = [], [], 0
+    for _ in range(frames):
+        k = kphysics.physics_step_cuda(k, params, dt, substeps)
+        p = pworld.physics_step_plain(p, params, dt, substeps)
+        kernel_rows.append(physics_bits(k))
+        plain_rows.append(physics_bits(p))
+        if n > 1:
+            touching += int(pair_touching(k, params, ii, jj))
+    same = (torch.stack(kernel_rows) == torch.stack(plain_rows)).all(dim=1)
+    bad = (~same).nonzero()
+    return {"frames": frames,
+            "first_mismatch": int(bad[0]) + 1 if len(bad) else None,
+            "touching_frames": touching, "t": float(k.t)}
+
+
+def physics_reference_case(device, frames: int) -> dict:
+    """The demo drop stepped ``frames`` frames by ``physics_step`` on
+    ``device`` (on the card the physics step kernel) against
+    ``benchmark/reference/physics.py``'s own world stepped on the CPU, as
+    physics.drop checks its states: every frame's 7 leaves bit for bit.
+    Returns the frames, the first frame whose bits differ (None), the
+    final t and the reference's seconds."""
+    import torch
+    from benchmark.reference import physics as ref
+    from ttrt_torch.physics import world as pworld
+
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "physics.json")) as f:
+        config = json.load(f)
+    drop = ref.Drop(config, dtype=torch.float32, device=torch.device("cpu"))
+    state, params, dt, substeps = physics_world("demo", device)
+    assert substeps == drop.world.substeps
+    rows, ref_rows = [], []
+    t0 = time.perf_counter()
+    for k in range(1, frames + 1):
+        ref_rows.append(physics_bits(drop.at(k)))
+    ref_s = time.perf_counter() - t0
+    for _ in range(frames):
+        state = pworld.physics_step(state, params, dt, substeps)
+        rows.append(physics_bits(state))
+    bad = (~(torch.stack(rows).cpu() == torch.stack(ref_rows)).all(dim=1)
+           ).nonzero()
+    return {"frames": frames,
+            "first_mismatch": int(bad[0]) + 1 if len(bad) else None,
+            "t": float(state.t), "reference_s": round(ref_s, 3)}
 
 
 def physics_state_of(row):
@@ -1574,10 +1684,7 @@ def physics_states(world: str, device, frames: int):
     for _ in range(frames):
         state = pworld.physics_step(state, params, dt, substeps)
         rows.append(torch.cat([*state.pos, *state.vel, state.t[None]]))
-        p = state.pos.to_array()
-        gap = ((p[ii] - p[jj]).norm(dim=1)
-               - params.radius[ii] - params.radius[jj])
-        touching += (gap < 1e-4).any()
+        touching += pair_touching(state, params, ii, jj)
     return torch.stack(rows), int(touching)
 
 
@@ -3379,7 +3486,7 @@ def scene_phases(card: str, dev, full) -> list:
     import torch
 
     from ttrt_torch import app, assets
-    from ttrt_torch.bench import _cuda_kernels, _median_ms
+    from ttrt_torch.bench import _cuda_kernels, _kernel_ms, _median_ms
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import pathtrace, render
     from ttrt_torch.physics import demo, world as pworld
@@ -3388,7 +3495,8 @@ def scene_phases(card: str, dev, full) -> list:
     from ttrt_torch.scene import demo_scene
     from ttrt_torch.scenefile import load_scene_file
     from ttrt_torch.term.encoder import encode_rgb_frame
-    from ttrt_torch.utils.profiling import StageTimers
+    from ttrt_torch.kernels import build
+    from ttrt_torch.utils.profiling import PHYSICS_STEPS, StageTimers
 
     t_start = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
@@ -3587,6 +3695,22 @@ def scene_phases(card: str, dev, full) -> list:
     ckpt_end(2, cli_run)
     assert ph["head-on"] > 0, ph  # GJK's contact path ran
 
+    # the physics step kernel: against the eager step on the card, frame by
+    # frame, and against the benchmark's reference on the CPU
+    from ttrt_torch.kernels import physics as kphysics
+
+    print(f"phase PH: physics step kernel launch (6 bodies) "
+          f"{json.dumps(kphysics.physics_layout(6))}; ptxas: "
+          f"{_ptxas_lines(build.build()[1], 'physics_step_kernel')}")
+    st = physics_kernel_case(*physics_world("demo", dev), 120)
+    print(f"phase PH: physics step kernel vs the eager step on the card, "
+          f"demo drop: {json.dumps(st)}")
+    assert st["first_mismatch"] is None, st
+    st = physics_reference_case(dev, PHYSICS_REFERENCE_FRAMES)
+    print(f"phase PH: physics step kernel vs benchmark/reference/physics.py "
+          f"on the CPU, every leaf of every frame: {json.dumps(st)}")
+    assert st["first_mismatch"] is None, st
+
     # every 30th frame of the drop (the states of the first run above)
     # rendered by the kernel and the plain version through the frame step
     # (no substep: the state as stepped)
@@ -3602,24 +3726,35 @@ def scene_phases(card: str, dev, full) -> list:
         print(f"phase PH: physics frame {i} (t={float(state.t):.4f}): "
               f"render kernel vs plain {json.dumps(stats)}")
 
-    # the step's cost: host clock around a synchronized step, median
+    # the step's cost: host clock around a synchronized step, median, through
+    # the kernel (physics_step's route here) and the eager step
     dt = torch.tensor(full.frame_duration, device=dev)
-    s, times = state0, []
-    for _ in range(30):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s = pworld.physics_step(s, params, dt, demo.SUBSTEPS)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    with _OpCount() as ops:
-        pworld.physics_step(state0, params, dt, demo.SUBSTEPS)
-    kernels_a_frame = _cuda_kernels(
-        lambda: pworld.physics_step(state0, params, dt, demo.SUBSTEPS))
-    print(f"phase PH [{card}]: physics step, one frame of {demo.SUBSTEPS} "
-          f"substeps, 6 spheres (15 pairs): {statistics.median(times):.4f} "
-          f"ms (median of 30; {ops.n} ATen ops, "
-          f"{kernels_a_frame if kernels_a_frame else 'not measured'} CUDA "
-          f"kernels by torch.profiler, copies and fills left out)")
+    step_host_ms = {}
+    for name, fn in (("kernel", pworld.physics_step),
+                     ("eager", pworld.physics_step_plain)):
+        s, times = state0, []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = fn(s, params, dt, demo.SUBSTEPS)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        step_host_ms[name] = statistics.median(times)
+        with _OpCount() as ops:
+            fn(state0, params, dt, demo.SUBSTEPS)
+        kernels_a_frame = _cuda_kernels(
+            lambda: fn(state0, params, dt, demo.SUBSTEPS))
+        print(f"phase PH [{card}]: physics step through the {name}, one "
+              f"frame of {demo.SUBSTEPS} substeps, 6 spheres (15 pairs): "
+              f"{step_host_ms[name]:.4f} ms (host clock around a "
+              f"synchronized step, median of 30; {ops.n} ATen ops, "
+              f"{kernels_a_frame if kernels_a_frame else 'not measured'} "
+              f"CUDA kernels by torch.profiler, copies and fills left out)")
+    step_ms, how = _kernel_ms(
+        lambda: pworld.physics_step(state0, params, dt, demo.SUBSTEPS),
+        "physics_step_kernel")
+    print(f"phase PH [{card}]: physics_step_kernel, one frame: {step_ms:.4f} "
+          f"ms ({how})")
 
     # the main path in this process: run_physics, counts 0 before. The
     # frame rate is the physics' time step too, so the pace stays at 60 fps
@@ -3628,6 +3763,7 @@ def scene_phases(card: str, dev, full) -> list:
     timers = StageTimers()
     for fn in counters:
         fn.launches = 0
+    kphysics.physics_step_cuda.launches = 0
     t0 = time.perf_counter()
     app.run_physics(full, "colors", N_FRAMES, interactive=False,
                     encode="device", device=dev, stream=sink, timers=timers)
@@ -3636,6 +3772,10 @@ def scene_phases(card: str, dev, full) -> list:
     ph_launches = [fn.launches for fn in counters]
     validate_stream(sink.getvalue(), full.width, full.height, N_FRAMES)
     assert ph_launches == [N_FRAMES, 0, 0, 0], ph_launches
+    steps = PHYSICS_STEPS
+    assert (steps.kernel, steps.eager) == (N_FRAMES, 0), vars(steps)
+    ph_steps = kphysics.physics_step_cuda.launches
+    assert ph_steps == N_FRAMES, ph_steps
     summary = timers.summary()
     split = {k: [round(st["mean_ms"], 4), round(st["p50_ms"], 4)]
              for k, st in summary.items()}
@@ -3736,6 +3876,12 @@ def scene_phases(card: str, dev, full) -> list:
               launches=ph_launches[0], max_abs_err=ph_err, ms=ph_ms,
               plain_ms=ph_plain_ms, bound_ms=ph_bound[0],
               bound_by=ph_bound[1]),
+        # no TPU kernel (JAX jits the step); its bound is its one launch
+        entry(name="physics_step",
+              source="ttrt_torch/kernels/csrc/physics.cu",
+              replaces=None, launches=ph_steps, max_abs_err=0.0,
+              ms=step_ms, plain_ms=step_host_ms["eager"], bound_ms=None,
+              bound_by="launch"),
     ]
 
 

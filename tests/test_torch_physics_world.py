@@ -12,8 +12,14 @@ first sphere-sphere contact comes at frame 132); the measured max |d| is
 multiply-adds that the port's eager ops round apart). A physics frame's
 plain render meets the knife bar against JAX's render of the same frame;
 checkpoints cross between the packages both ways.
+
+What the physics step kernel (``csrc/physics.cu``) rests on, on the CPU:
+each pair's GJK query run alone equals the batched lockstep call bit for
+bit, and ``physics_step`` on the CPU is the eager step, counted in
+``profiling.PHYSICS_STEPS``, which each frame loop starts anew.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -38,9 +44,11 @@ from ttrt.vec import Vec3 as JVec3
 
 from ttrt_torch import assets
 from ttrt_torch.config import RenderConfig
+from ttrt_torch.kernels import physics as kphysics
 from ttrt_torch.kernels import render
-from ttrt_torch.physics import demo, world
+from ttrt_torch.physics import demo, gjk, world
 from ttrt_torch.scene import demo_scene
+from ttrt_torch.utils import profiling
 from ttrt_torch.vec import Vec3
 
 torch.set_num_threads(1)  # the test workers share the cores
@@ -147,6 +155,92 @@ def test_demo_drop_matches_jax(dtype, tol):
         p = ts.pos.to_array().numpy()
         closest = min(closest, np.linalg.norm(p[ii] - p[jj], axis=1).min())
     assert closest < 1.0 + 1e-3  # a pair touched: GJK's contact path ran
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32 if x.dtype == torch.float32
+                               else torch.int64)
+
+
+def _lanes_alone(checked: dict):
+    """A stand-in for ``gjk_distance`` in ``world``: the batched lockstep
+    call, and each lane's query run alone (a batch of one, with its own
+    early exit), which must give that lane's bits; counts the lanes and
+    the touching ones into ``checked``."""
+    def each_lane(sa, sb, x0):
+        dist, normal = gjk.gjk_distance(sa, sb, x0)
+        for q in range(dist.shape[0]):
+            def lane(v):
+                return Vec3(*(c[q:q + 1] for c in v))
+
+            d1, n1 = gjk.gjk_distance(
+                gjk.sphere_support(lane(sa.fn.center), sa.margin[q:q + 1]),
+                gjk.sphere_support(lane(sb.fn.center), sb.margin[q:q + 1]),
+                lane(x0))
+            for alone, batched in zip((d1, *n1), (dist, *normal)):
+                assert torch.equal(_bits(alone), _bits(batched[q:q + 1])), q
+        checked["lanes"] += dist.shape[0]
+        checked["touching"] += int((dist < 0).sum())
+        return dist, normal
+
+    return each_lane
+
+
+def _sphere_support(center, radius):
+    """``gjk.sphere_support`` with its centres kept on its function."""
+    s = gjk.sphere_support(center, radius)
+    fn = functools.partial(s.fn)
+    fn.center = center
+    return s._replace(fn=fn)
+
+
+@pytest.mark.parametrize("name", ["demo", "head-on"])
+def test_gjk_lane_alone_equals_lockstep_batch(name, monkeypatch):
+    """What the physics step kernel rests on: a pair's GJK query run alone
+    (one lane a pair, stopping at its own convergence) gives the bits of
+    the batched lockstep loop, in every substep of the demo drop's first
+    60 frames (4 substeps, 15 pairs; a pair touches in one substep) and of
+    the head-on world's 40 steps, its contact included."""
+    if name == "demo":
+        ts, tp = _demo_pair(torch.float32)[1]
+        dt, sub, frames = 1.0 / 60.0, demo.SUBSTEPS, 60
+    else:
+        _, _, ts, tp, dt, sub = _world(name, torch.float32)
+        frames = 40
+    checked = {"lanes": 0, "touching": 0}
+    monkeypatch.setattr(world, "sphere_support", _sphere_support)
+    monkeypatch.setattr(world, "gjk_distance", _lanes_alone(checked))
+    with torch.inference_mode():  # a lone query is ~1,400 ATen ops
+        for _ in range(frames):
+            ts = world.physics_step(ts, tp, dt, sub)
+    pairs = tp.radius.shape[0] * (tp.radius.shape[0] - 1) // 2
+    assert checked["lanes"] == frames * sub * pairs
+    assert checked["touching"] > 0, checked  # the contact path ran
+
+
+def test_physics_step_on_the_cpu_is_the_eager_step():
+    (_, _), (ts, tp) = _demo_pair(torch.float32)
+    assert not kphysics.takes(ts, tp)
+    profiling.PHYSICS_STEPS.reset()
+    out = world.physics_step(ts, tp, 1.0 / 60.0, demo.SUBSTEPS)
+    assert (profiling.PHYSICS_STEPS.kernel,
+            profiling.PHYSICS_STEPS.eager) == (0, 1)
+    plain = world.physics_step_plain(ts, tp, 1.0 / 60.0, demo.SUBSTEPS)
+    for a, b in zip((*out.pos, *out.vel, out.t),
+                    (*plain.pos, *plain.vel, plain.t)):
+        assert torch.equal(_bits(a), _bits(b))
+    with pytest.raises(ValueError):
+        kphysics.physics_step_cuda(ts, tp, 1.0 / 60.0, demo.SUBSTEPS)
+
+
+def test_recording_resets_the_physics_step_counts():
+    profiling.PHYSICS_STEPS.kernel, profiling.PHYSICS_STEPS.eager = 3, 4
+    with profiling.recording(profiling.StageTimers()):
+        assert (profiling.PHYSICS_STEPS.kernel,
+                profiling.PHYSICS_STEPS.eager) == (0, 0)
+        profiling.PHYSICS_STEPS.eager += 1
+    # kept after the loop, for the benchmark's reader
+    assert profiling.PHYSICS_STEPS.eager == 1
 
 
 def test_physics_frame_plain_render_meets_knife_bar():

@@ -155,6 +155,13 @@ def load() -> ctypes.CDLL:
     # kb_sph, kb_tri, n_al, W, H, N, out[10]
     lib.ttrt_pathtrace_mesh_layout.restype = ctypes.c_int
     lib.ttrt_pathtrace_mesh_layout.argtypes = [i] * 6 + [p]
+    # pos x y z, vel x y z, t, radius, inv_mass, gravity, restitution,
+    # ground_y, bounds, dt, n, substeps, out, stream
+    lib.ttrt_physics_step.restype = ctypes.c_int
+    lib.ttrt_physics_step.argtypes = [p] * 14 + [i, i, p, p]
+    # n, out[5]
+    lib.ttrt_physics_layout.restype = ctypes.c_int
+    lib.ttrt_physics_layout.argtypes = [i, p]
     return lib
 
 

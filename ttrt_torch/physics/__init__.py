@@ -4,4 +4,5 @@ by the port's renderer."""
 
 from ttrt_torch.physics.gjk import (gjk_distance, polytope_support,
                                     sphere_support)
-from ttrt_torch.physics.world import PhysicsParams, PhysicsState, physics_step
+from ttrt_torch.physics.world import (PhysicsParams, PhysicsState,
+                                      physics_step, physics_step_plain)

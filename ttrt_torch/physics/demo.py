@@ -3,9 +3,10 @@ contacts, rendered by the same scene and render stack (port of
 ``ttrt.physics.demo``).
 
 JAX fuses a frame's physics substeps, render and encode into one jitted
-program. Here the frame step runs the substeps as eager torch ops on the
-scene's device, then renders through the port's renderer (on the card the
-render kernel, which packs the moved spheres every frame).
+program. Here the frame step runs the substeps through ``physics_step``
+(on the card one launch of the physics step kernel, on the CPU the eager
+step), then renders through the port's renderer (on the card the render
+kernel, which packs the moved spheres every frame).
 
 The state is explicit (``PhysicsState``), so checkpoint and resume are an
 ``np.savez`` round trip of its seven leaves in JAX's pytree order; a

@@ -9,7 +9,10 @@ Everything is a fixed-shape whole-batch computation:
     fixed order (``_PairSums``), so simultaneous contacts resolve in one
     pass and a run repeats its bits on the card;
   - the step is pure (state, params, dt) -> state, and the state is the
-    checkpoint.
+    checkpoint;
+  - on the card, one launch of ``csrc/physics.cu::physics_step_kernel``
+    steps the world (``physics_step``); ``physics_step_plain``, the eager
+    step, is its plain version.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ttrt_torch.kernels import physics as kphysics
 from ttrt_torch.physics.gjk import (gjk_distance, polytope_support,
                                     sphere_support)
+from ttrt_torch.utils.profiling import PHYSICS_STEPS
 from ttrt_torch.vec import Vec3, scalar_like
 
 
@@ -126,7 +131,25 @@ def physics_step(state: PhysicsState, params: PhysicsParams, dt,
                  substeps: int = 1) -> PhysicsState:
     """Advance the world by dt in ``substeps`` equal steps: semi-implicit
     Euler, GJK contacts, impulse response, positional de-penetration,
-    ground and soft-wall bounces."""
+    ground and soft-wall bounces.
+
+    A world the physics step kernel takes (``kernels/physics.py::takes``:
+    float32 on a CUDA device, no obstacles, its bodies and pairs in one
+    block) is stepped in one launch of it, with the same bits; any other
+    (the CPU, bfloat16 or float64, obstacles) by ``physics_step_plain``.
+    ``profiling.PHYSICS_STEPS`` counts the steps of each route."""
+    if kphysics.takes(state, params):
+        PHYSICS_STEPS.kernel += 1
+        return kphysics.physics_step_cuda(state, params, dt, substeps)
+    PHYSICS_STEPS.eager += 1
+    return physics_step_plain(state, params, dt, substeps)
+
+
+def physics_step_plain(state: PhysicsState, params: PhysicsParams, dt,
+                       substeps: int = 1) -> PhysicsState:
+    """``physics_step`` as eager torch ops on the state's device, and the
+    plain version of the physics step kernel: every world, obstacles
+    included."""
     n = params.radius.shape[0]
     device = params.radius.device
     plan = _pair_plan(n, device)

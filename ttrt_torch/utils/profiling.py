@@ -19,6 +19,8 @@ The reference's only instrumentation is the fps printout
   - PATH_STEPS: the route each of the running loop's path-traced frame
     steps took: a path-tracing kernel, or the eager estimator
     (``PathStepCounts``).
+  - PHYSICS_STEPS: the route each physics step took: the physics step
+    kernel, or the eager step (``PhysicsStepCounts``).
   - profile_trace: a torch.profiler trace of CPU and CUDA activity around
     a block, written as a Chrome trace (--profile DIR in the CLI).
 """
@@ -132,15 +134,33 @@ class PathStepCounts:
 PATH_STEPS = PathStepCounts()
 
 
+class PhysicsStepCounts:
+    """The physics steps (``physics/world.py::physics_step``) by route, on
+    any device: ``kernel``, each one launch of the physics step kernel, and
+    ``eager``, each through the eager step (``physics_step_plain``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.kernel = 0
+        self.eager = 0
+
+
+PHYSICS_STEPS = PhysicsStepCounts()
+
+
 @contextlib.contextmanager
 def recording(timers) -> Iterator[None]:
     """Make ``timers`` (anything with ``stage(name)``) the recorder of
     ``span`` for the block, then restore the one installed before. The
-    block is a frame loop: ``STEPS`` and ``PATH_STEPS`` start anew with it
-    and keep their counts after it, until the next loop."""
+    block is a frame loop: ``STEPS``, ``PATH_STEPS`` and ``PHYSICS_STEPS``
+    start anew with it and keep their counts after it, until the next
+    loop."""
     global _recorder
     STEPS.reset()
     PATH_STEPS.reset()
+    PHYSICS_STEPS.reset()
     saved, _recorder = _recorder, timers
     try:
         yield
