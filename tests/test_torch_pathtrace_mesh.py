@@ -7,6 +7,7 @@ widened plain version unchanged, the rows of a frame, the kernel's gates,
 
 import hashlib
 import io
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 import chip_smoke
 from test_torch_app import _run
 
-from ttrt_torch import app, assets
+from ttrt_torch import app, assets, routes
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
 from ttrt_torch.kernels import pathtrace
@@ -138,13 +139,20 @@ def test_pick_pathtracer_routes_a_mesh_scene():
     cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2)
     many = app.make_scene("many", cfg, "colors", device="cpu", n_spheres=40)
     lights = estimator.default_area_lights(cfg, "cpu")
-    pick = app._pick_pathtracer
+
+    def pick(scene, lights, cfg, renderer="auto", mesh=None):
+        """Whether the path-traced route is the kernel's."""
+        return routes.pick(scene, cfg, renderer, mesh=mesh, pathtrace=True,
+                           lights=lights).name == "pathtrace kernel"
+
     assert pick(many, lights, cfg) and pick(many, lights, cfg, "kernel")
     assert not pick(many, lights, cfg.with_(dtype=torch.float64))
     image_sky = many._replace(skybox=Skybox(many.skybox.packed, None))
     assert not pick(image_sky, lights, cfg)
     assert not pick(many, lights, cfg, "eager")
-    mesh = object()  # a device mesh: the route asks only whether there is one
+    # a device mesh as the route reads one: its axes and its size
+    mesh = SimpleNamespace(mesh_dim_names=("rows", "samples"),
+                           mesh=torch.zeros(1, 1), size=lambda: 1)
     assert not pick(many, lights, cfg, "auto", mesh)
     with pytest.raises(ConfigError, match="--renderer eager"):
         pick(many, lights, cfg, "kernel", mesh)

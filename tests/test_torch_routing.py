@@ -1,13 +1,18 @@
 """The routing of the many-object tier and of ``--pathtrace`` on the CPU:
 ``python -m ttrt_torch --scene many`` emits a valid stream, ``--renderer
-kernel`` refuses a config no kernel serves, ``_pick_renderer`` sends
-float64 and ``--renderer eager`` to the integrator, and ``trace_ray_mesh``
+kernel`` refuses a config no kernel serves, ``routes.pick`` sends
+float64 and ``--renderer eager`` to the integrator (every row of its route
+table: the leaf, the graph flag, the refusal), and ``trace_ray_mesh``
 gives rays off the CPU to the cluster_nearest kernel or raises.
 ``--pathtrace`` takes a path-tracing kernel (its plain version here) for
 a float32 demo scene or ``MeshScene`` and the eager estimator for
 ``--renderer eager`` and float64, and refuses what neither serves in one
 line.
 """
+
+import math
+import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -16,10 +21,11 @@ import torch
 import chip_smoke
 from test_torch_app import _run
 
-from ttrt_torch import app
+from ttrt_torch import app, routes
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch import assets
-from ttrt_torch.kernels import mesh, mesh_fused, pathtrace
+from ttrt_torch.kernels import mesh, mesh_fused, pathtrace, render
+from ttrt_torch.parallel import objects, sharding
 from ttrt_torch.mesh.scene import trace_ray_mesh
 from ttrt_torch.render import integrator
 from ttrt_torch.render import pathtrace as estimator
@@ -48,20 +54,121 @@ def test_cli_kernel_renderer_refuses_f64():
     assert len(lines) == 1 and "float32-only" in lines[0], lines
 
 
-@pytest.mark.parametrize("scene_kind", ["demo", "many"])
-def test_pick_renderer_routes(scene_kind):
-    cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2)
+def _stand_in_mesh(**axes):
+    """A device mesh as the router reads one: its axes, their sizes, its
+    size."""
+    return SimpleNamespace(mesh_dim_names=tuple(axes),
+                           mesh=torch.zeros(tuple(axes.values())),
+                           size=lambda: math.prod(axes.values()))
+
+
+# each route's leaves: (single device, over a mesh)
+LEAVES = {
+    "eager": (integrator.render_frame, sharding.render_frame_sharded),
+    "demo kernel": (render.render_frame,
+                    sharding.render_frame_sharded_kernel),
+    "fused kernel": (mesh_fused.render_frame_mesh_fused,
+                     sharding.render_frame_sharded_mesh_fused),
+    "objects": (None, objects.render_frame_sharded_objects),
+    "pathtrace kernel": (pathtrace.pathtrace_frame,
+                         sharding.pathtrace_frame_sharded_kernel),
+    "estimator": (estimator.pathtrace_frame,
+                  sharding.pathtrace_frame_sharded),
+}
+F32 = "float32-only"
+PT_MESH = "path-tracing kernel only .--renderer eager"
+SAMPLES = "--pathtrace shards samples, not geometry"
+# (scene, mesh axes): {(path tracing, float64): the route or the refusal
+# of auto, kernel and eager}
+ROUTE_TABLE = {
+    ("demo", None): {
+        (False, False): ("demo kernel", "demo kernel", "eager"),
+        (False, True): ("eager", "render kernel is " + F32, "eager"),
+        (True, False): ("pathtrace kernel", "pathtrace kernel", "estimator"),
+        (True, True): ("estimator", F32 + " .--renderer eager", "estimator"),
+    },
+    ("many", None): {
+        (False, False): ("fused kernel", "fused kernel", "eager"),
+        (False, True): ("eager", "fused mesh kernel is " + F32, "eager"),
+        (True, False): ("pathtrace kernel", "pathtrace kernel", "estimator"),
+        (True, True): ("estimator", F32 + " .--renderer eager", "estimator"),
+    },
+    ("demo", "rows"): {
+        (False, False): ("demo kernel", "demo kernel", "eager"),
+        (False, True): ("eager", "render kernel is " + F32, "eager"),
+        (True, False): ("pathtrace kernel", "pathtrace kernel", "estimator"),
+        (True, True): ("estimator", F32 + " .--renderer eager", "estimator"),
+    },
+    ("many", "rows"): {
+        (False, False): ("fused kernel", "fused kernel", "eager"),
+        (False, True): ("eager", "fused mesh kernel is " + F32, "eager"),
+        (True, False): ("estimator", PT_MESH, "estimator"),
+        (True, True): ("estimator", PT_MESH, "estimator"),
+    },
+    ("demo", "objects"): {
+        (False, False): ("needs a cluster-packed",) * 3,
+        (False, True): ("needs a cluster-packed",) * 3,
+        (True, False): (SAMPLES,) * 3,
+        (True, True): (SAMPLES, F32 + " .--renderer eager", SAMPLES),
+    },
+    ("many", "objects"): {
+        (False, False): ("objects",) * 3,
+        (False, True): ("--f64 is refused with it",) * 3,
+        (True, False): (SAMPLES, PT_MESH, SAMPLES),
+        (True, True): (SAMPLES, PT_MESH, SAMPLES),
+    },
+}
+
+
+@pytest.mark.parametrize("scene_kind,axes", [
+    pytest.param(*case, id="-".join(c for c in case if c))
+    for case in ROUTE_TABLE])
+def test_pick_renderer_routes(monkeypatch, scene_kind, axes):
+    """Every row of the route table: the route ``routes.pick`` names, the
+    leaf its frame calls (the single device's, or the mesh's with the
+    mesh), whether it may be graphed (a kernel's, on one device), or the
+    refusal. The mesh is a stand-in: 2 rows, or 2 on the objects axis."""
+    cfg = RenderConfig(width=8, height=4, rays_per_pixel=2, bounce_limit=2)
     scene = app.make_scene(scene_kind, cfg, "colors", device="cpu",
                            n_spheres=50)
-    kernel = (mesh_fused.render_frame_mesh_fused if scene_kind == "many"
-              else app.render.render_frame)
-    assert app._pick_renderer(scene, cfg) is kernel
-    assert app._pick_renderer(scene, cfg, "kernel") is kernel
-    assert app._pick_renderer(scene, cfg, "eager") is integrator.render_frame
-    f64 = cfg.with_(dtype=torch.float64)
-    assert app._pick_renderer(scene, f64) is integrator.render_frame
-    with pytest.raises(ConfigError, match="float32"):
-        app._pick_renderer(scene, f64, "kernel")
+    mesh = {None: None, "rows": _stand_in_mesh(rows=2, samples=1),
+            "objects": _stand_in_mesh(rows=1, samples=1, objects=2)}[axes]
+    called = []  # (the leaf, whether it was given the mesh)
+
+    def stub(leaf):
+        def call(*args, **kw):
+            called.append((leaf, mesh is not None and any(
+                x is mesh for x in (*args, *kw.values()))))
+            return None, None
+        return call
+
+    for leaf in (f for pair in LEAVES.values() for f in pair if f):
+        monkeypatch.setattr(sys.modules[leaf.__module__], leaf.__name__,
+                            stub(leaf))
+    for (path, f64), want in ROUTE_TABLE[scene_kind, axes].items():
+        c = cfg.with_(dtype=torch.float64) if f64 else cfg
+        for renderer, expect in zip(routes.RENDERERS, want):
+            row = (path, f64, renderer)
+
+            def pick():
+                return routes.pick(scene, c, renderer, mesh=mesh,
+                                   pathtrace=path, seed=3)
+
+            if expect not in LEAVES:
+                with pytest.raises(ConfigError, match=expect):
+                    pick()
+                continue
+            route = pick()
+            assert route.name == expect, row
+            assert route.graphable == (
+                mesh is None and expect in ("demo kernel", "fused kernel"))
+            assert (route.fn is None) == path, row
+            called.clear()
+            route.frame(scene, 0.5)
+            leaf = LEAVES[expect][mesh is not None]
+            assert called == [(leaf, mesh is not None)], row
+    with pytest.raises(ConfigError, match="unknown renderer"):
+        routes.pick(scene, cfg, "fast", mesh=mesh)
 
 
 def test_run_animation_many_scene_through_the_eager_integrator():
@@ -93,12 +200,12 @@ def test_pick_renderer_refuses_f64_many_scene_off_the_cpu():
     f64 = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2,
                        dtype=torch.float64)
     scene = app.make_scene("many", f64, "colors", device="cpu", n_spheres=50)
-    assert app._pick_renderer(scene, f64) is integrator.render_frame
+    assert routes.pick(scene, f64).fn is integrator.render_frame
     radius = torch.empty(50, dtype=torch.float64, device="meta")
     off_cpu = scene._replace(spheres=scene.spheres._replace(radius=radius))
     for renderer in ("auto", "eager"):
         with pytest.raises(ConfigError, match="--device cpu"):
-            app._pick_renderer(off_cpu, f64, renderer)
+            routes.pick(off_cpu, f64, renderer)
 
 
 def test_trace_ray_mesh_off_the_cpu_takes_the_kernel_or_raises():
@@ -170,7 +277,12 @@ def test_pick_pathtracer_routes(monkeypatch):
     demo = app.make_scene("demo", cfg, "colors", device="cpu")
     many = app.make_scene("many", cfg, "colors", device="cpu", n_spheres=64)
     lights = estimator.default_area_lights(cfg, "cpu")
-    pick = app._pick_pathtracer
+
+    def pick(scene, lights, cfg, renderer="auto"):
+        """Whether the path-traced route is the kernel's."""
+        return routes.pick(scene, cfg, renderer, pathtrace=True,
+                           lights=lights).name == "pathtrace kernel"
+
     assert pick(demo, lights, cfg) and pick(demo, lights, cfg, "kernel")
     assert not pick(demo, lights, cfg, "eager")
     assert not pick(demo, lights, cfg.with_(dtype=torch.float64))

@@ -185,9 +185,8 @@ def test_debug_nans_raises_on_a_non_finite_frame(monkeypatch):
             return fb, rays
         return render_fn
 
-    pick = app._pick_renderer
-    monkeypatch.setattr(app, "_pick_renderer",
-                        lambda *a, **kw: poisoned(pick(*a, **kw)))
+    monkeypatch.setattr(render, "render_frame",
+                        poisoned(render.render_frame))
     monkeypatch.setattr(pathtrace, "pathtrace_frame",
                         poisoned(pathtrace.pathtrace_frame))
     cfg = RenderConfig(width=8, height=4, rays_per_pixel=1, bounce_limit=2)

@@ -15,7 +15,7 @@ import torch
 import chip_smoke
 from test_torch_app import _run
 
-from ttrt_torch import app, assets
+from ttrt_torch import app, assets, routes
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.kernels import mesh_fused, pathtrace, render
 from ttrt_torch.render import pathtrace as estimator
@@ -84,9 +84,10 @@ def test_pathtrace_image_sky_takes_the_estimator(monkeypatch):
                        frame_rate=1e9)
     demo = app.make_scene("demo", cfg, "milky_way", device="cpu")
     lights = estimator.default_area_lights(cfg, "cpu")
-    assert not app._pick_pathtracer(demo, lights, cfg)
+    assert routes.pick(demo, cfg, pathtrace=True,
+                       lights=lights).name == "estimator"
     with pytest.raises(ConfigError, match="procedural sky"):
-        app._pick_pathtracer(demo, lights, cfg, "kernel")
+        routes.pick(demo, cfg, "kernel", pathtrace=True, lights=lights)
     calls = []
     real = estimator.pathtrace_frame
     monkeypatch.setattr(estimator, "pathtrace_frame",

@@ -11,16 +11,15 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_step_graph.py
 """
 
-import functools
 import io
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from ttrt_torch import app, step_graph
+from ttrt_torch import app, routes, step_graph
 from ttrt_torch.config import RenderConfig
 from ttrt_torch.kernels import mesh_fused, render
-from ttrt_torch.render import integrator
 from ttrt_torch.utils import profiling
 
 torch.set_num_threads(1)  # the test workers share the cores
@@ -32,16 +31,24 @@ TIMES = (0.0, 0.37, 1.5, 2.25, 7.9, 63.125)
 
 
 def test_the_rule_graphs_a_cuda_kernel_step_without_mesh_or_nan_check():
-    kernels = (render.render_frame, mesh_fused.render_frame_mesh_fused)
-    for fn in kernels:
-        assert step_graph.engages("cuda", fn)
-        assert step_graph.engages(torch.device("cuda", 0), fn)
-        assert not step_graph.engages("cpu", fn)
-        assert not step_graph.engages("cuda", fn, mesh=object())
-        assert not step_graph.engages("cuda", fn, debug_nans=True)
-    for fn in (integrator.render_frame, render.render_frame_plain,
-               functools.partial(render.render_frame)):
-        assert not step_graph.engages("cuda", fn)
+    scenes = {kind: app.make_scene(kind, SMALL, "colors", device="cpu",
+                                   n_spheres=50) for kind in ("demo", "many")}
+    mesh = SimpleNamespace(mesh_dim_names=("rows", "samples"),
+                           mesh=torch.zeros(2, 1), size=lambda: 2)
+    for scene, fn in ((scenes["demo"], render.render_frame),
+                      (scenes["many"], mesh_fused.render_frame_mesh_fused)):
+        route = routes.pick(scene, SMALL)
+        assert route.fn is fn
+        assert step_graph.engages("cuda", route)
+        assert step_graph.engages(torch.device("cuda", 0), route)
+        assert not step_graph.engages("cpu", route)
+        assert not step_graph.engages("cuda", route, debug_nans=True)
+        assert not step_graph.engages("cuda",
+                                      routes.pick(scene, SMALL, mesh=mesh))
+    for scene in scenes.values():
+        for route in (routes.pick(scene, SMALL, "eager"),
+                      routes.pick(scene, SMALL, pathtrace=True)):
+            assert not step_graph.engages("cuda", route)
 
 
 def test_no_step_on_the_cpu_is_graphed_or_counted(monkeypatch):
@@ -55,9 +62,11 @@ def test_no_step_on_the_cpu_is_graphed_or_counted(monkeypatch):
         app.run_animation(SMALL, "colors", max_frames=3, interactive=False,
                           device="cpu", stream=io.BytesIO(), **kw)
         assert (profiling.STEPS.replayed, profiling.STEPS.eager) == (0, 0)
-    # build_frame_step and build_frame_batch_step ask the rule, and the
-    # path tracer never does: its frame seed is a host value of each frame
-    monkeypatch.setattr(step_graph, "engages", lambda *a, **kw: True)
+    # the rule without its device: build_frame_step and
+    # build_frame_batch_step graph a kernel's route, and the path tracer's
+    # route is never graphable: its frame seed is a host value of each frame
+    monkeypatch.setattr(step_graph, "engages",
+                        lambda device, route, *a, **kw: route.graphable)
     assert isinstance(app.build_frame_step(scene, SMALL, "host"),
                       step_graph.GraphedStep)
     assert isinstance(app.build_frame_batch_step(scene, SMALL, 3),

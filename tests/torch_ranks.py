@@ -112,7 +112,7 @@ def sharding_world(out: Path, many_spheres: int, seed: int) -> dict:
     import torch
     import torch.distributed as dist
 
-    from ttrt_torch import app, assets
+    from ttrt_torch import assets, routes
     from ttrt_torch.config import ConfigError, RenderConfig
     from ttrt_torch.mesh.scene import many_sphere_scene
     from ttrt_torch.parallel import sharding
@@ -147,7 +147,7 @@ def sharding_world(out: Path, many_spheres: int, seed: int) -> dict:
     res["refusals"] = []
     for cfg in (f32.with_(height=H + 1), f32.with_(rays_per_pixel=N + 1)):
         try:
-            app._pick_renderer_sharded(demo, cfg, mesh)
+            routes.pick(demo, cfg, mesh=mesh)
         except ConfigError as e:
             res["refusals"].append(str(e))
     return res

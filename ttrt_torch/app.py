@@ -7,7 +7,8 @@ Reference driver: main (TerminalRayTracer.c:1235-1370). Per tick:
     host clock t -> frame_step(t, cam_offset), all on the device:
         orbit camera pose
         render (a CUDA kernel, or the eager integrator or path tracer; the
-            kernel's plain version with --device cpu)
+            kernel's plain version with --device cpu), by the route that
+            ``routes.pick`` chose before the first frame
         quantize, and ANSI-encode on the device (--encode device) or keep
             the compact (H, W, 3) uint8 frame (--encode host)
     -> one device->host uint8 copy -> the host's ANSI expansion (the native
@@ -48,7 +49,6 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
-import functools
 import sys
 import time
 
@@ -56,13 +56,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ttrt_torch import IMPORTED_AT, assets, native, step_graph
+from ttrt_torch import IMPORTED_AT, assets, native, routes, step_graph
 from ttrt_torch.config import ConfigError, RenderConfig
 from ttrt_torch.frames import orbit_camera_frame
-from ttrt_torch.kernels import mesh_fused, pathtrace, render
 from ttrt_torch.mesh.scene import MeshScene, many_sphere_scene
 from ttrt_torch.parallel import mesh as pmesh
-from ttrt_torch.parallel import objects, sharding
+from ttrt_torch.parallel import sharding
 from ttrt_torch.physics.demo import (build_physics_demo,
                                      build_physics_frame_step,
                                      load_checkpoint, save_checkpoint)
@@ -75,129 +74,13 @@ from ttrt_torch.term.display import (KeyboardInput, SigintFlag,
 from ttrt_torch.term.encoder import (ansi_template, encode_ansi_frame,
                                      encode_ansi_host, encode_rgb_frame)
 from ttrt_torch.utils.logging import log
-from ttrt_torch.utils.profiling import (PATH_STEPS, SETUP, StageTimers,
-                                        note_import, profile_trace,
-                                        recording, span, touch_device)
+from ttrt_torch.utils.profiling import (SETUP, StageTimers, note_import,
+                                        profile_trace, recording, span,
+                                        touch_device)
 
 CAMERA_MOVE_SPEED = 0.1  # meters per keypress (reference stub's constant)
 _KEY_MOVES = {"up": (1, 1.0), "down": (1, -1.0), "left": (0, -1.0),
               "right": (0, 1.0)}
-
-
-RENDERERS = ("auto", "kernel", "eager")
-
-
-def _pick_renderer(scene, cfg: RenderConfig, renderer: str = "auto"):
-    """The render path (``ttrt.app._pick_renderer``, app.py:190-220):
-
-    - ``eager``, or ``auto`` in float64: the eager integrator
-      (``render.integrator.render_frame``), the only path for ``--f64``;
-    - otherwise a kernel: the demo scene's ``render_frame``, or for a
-      ``MeshScene`` with a cluster pack the fused whole-frame kernel
-      (each the CUDA kernel for CUDA tensors, its plain version for CPU
-      tensors). A config no kernel serves is refused here, before the
-      first frame (``kernel`` asks for a kernel explicitly).
-
-    The integrator traces a ``MeshScene`` on the card through the float32
-    ``cluster_nearest`` kernel, so a float64 ``MeshScene`` runs on the CPU
-    only (the JAX package traces it in float32 on an accelerator)."""
-    if renderer not in RENDERERS:
-        raise ConfigError(f"unknown renderer {renderer!r}")
-    if renderer == "eager" or (renderer == "auto"
-                               and cfg.dtype != torch.float32):
-        _check_f64_mesh_on_cpu(scene, cfg)
-        return integrator.render_frame
-    if isinstance(scene, MeshScene):
-        mesh_fused.check_supported(scene, cfg)
-        return mesh_fused.render_frame_mesh_fused
-    render.check_supported(scene, cfg)
-    return render.render_frame
-
-
-def _pick_renderer_sharded(scene, cfg: RenderConfig, mesh,
-                           renderer: str = "auto"):
-    """The multi-device analog of ``_pick_renderer``
-    (``ttrt.app._pick_renderer_sharded``, app.py:223-266): a (scene, cfg,
-    count_rays=...) -> (fb, rays) function over ``mesh``, with the same
-    routing.
-
-    - an objects axis: the eager integrator with the geometry sharded
-      (``parallel.objects``); it needs a cluster-packed ``MeshScene``;
-    - ``eager``, or ``auto`` in float64: the sharded eager integrator;
-    - otherwise the band launches of a kernel: the fused kernel for a
-      ``MeshScene``, the demo kernel for the demo scene.
-
-    Height and spp must divide by the mesh's rows and samples."""
-    if renderer not in RENDERERS:
-        raise ConfigError(f"unknown renderer {renderer!r}")
-    sharding.check_mesh_divisible(cfg, mesh)
-    if pmesh.OBJECTS in mesh.mesh_dim_names:
-        if not (isinstance(scene, MeshScene)
-                and scene.clusters is not None):
-            raise ConfigError(
-                "--mesh with an objects factor needs a cluster-packed "
-                "many-object scene (--scene many)")
-        if cfg.dtype != torch.float32:
-            raise ConfigError("--mesh with an objects factor traces "
-                              "through the float32 cluster_nearest: --f64 "
-                              "is refused with it")
-        return functools.partial(objects.render_frame_sharded_objects,
-                                 mesh=mesh)
-    if renderer == "eager" or (renderer == "auto"
-                               and cfg.dtype != torch.float32):
-        _check_f64_mesh_on_cpu(scene, cfg)
-        return functools.partial(sharding.render_frame_sharded, mesh=mesh)
-    if isinstance(scene, MeshScene):
-        mesh_fused.check_supported(scene, cfg)
-        return functools.partial(sharding.render_frame_sharded_mesh_fused,
-                                 mesh=mesh)
-    render.check_supported(scene, cfg)
-    return functools.partial(sharding.render_frame_sharded_kernel,
-                             mesh=mesh)
-
-
-def _check_f64_mesh_on_cpu(scene, cfg: RenderConfig) -> None:
-    """The eager paths trace a ``MeshScene`` on the card through the
-    float32 ``cluster_nearest`` kernel: float64 needs the CPU."""
-    if (isinstance(scene, MeshScene) and cfg.dtype != torch.float32
-            and scene.spheres.radius.device.type != "cpu"):
-        raise ConfigError("--f64 with --scene many needs --device cpu: "
-                          "the card traces a MeshScene through the "
-                          "float32 cluster_nearest kernel")
-
-
-def _pick_pathtracer(scene, lights, cfg: RenderConfig,
-                     renderer: str = "auto", mesh=None) -> bool:
-    """The ``--pathtrace`` path (``ttrt.app.build_pathtrace_frame_step``,
-    app.py:73-80): True for a path-tracing kernel, False for the eager
-    estimator (``render.pathtrace.pathtrace_frame``).
-
-    - ``eager``, or ``auto`` in float64, under an image cubemap (the
-      kernels are procedural-sky only, as JAX's) or on a ``MeshScene``
-      over a ``mesh`` (``--mesh``): the estimator;
-    - otherwise a kernel: the demo scene's, or a ``MeshScene``'s
-      ``pathtrace_mesh_kernel`` (the CUDA kernel for CUDA tensors, its
-      plain version for CPU tensors). A config outside the kernels'
-      gates, or ``kernel`` on a ``MeshScene`` over a mesh, is refused
-      here, before the first frame, with a pointer to ``--renderer
-      eager``."""
-    if renderer not in RENDERERS:
-        raise ConfigError(f"unknown renderer {renderer!r}")
-    many_over_mesh = mesh is not None and isinstance(scene, MeshScene)
-    if renderer == "eager" or (renderer == "auto" and (
-            cfg.dtype != torch.float32 or many_over_mesh
-            or scene.skybox.procedural is None)):
-        _check_f64_mesh_on_cpu(scene, cfg)
-        return False
-    try:
-        if many_over_mesh:
-            raise ConfigError("--pathtrace --mesh shards the demo scene's "
-                              "path-tracing kernel only")
-        pathtrace.check_supported(scene, lights, cfg)
-    except ConfigError as e:
-        raise ConfigError(f"{e} (--renderer eager runs the Monte-Carlo "
-                          "estimator)") from None
-    return True
 
 
 def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
@@ -216,13 +99,6 @@ def make_scene(kind: str, cfg: RenderConfig, skybox_name: str, *, device,
             raise ConfigError(f"unknown scene {kind!r}")
         return demo_scene(skybox, cfg.width, cfg.height, dtype=cfg.dtype,
                           device=device)
-
-
-def _pick(scene, cfg: RenderConfig, renderer: str, mesh):
-    """``_pick_renderer``, or over a ``mesh`` ``_pick_renderer_sharded``."""
-    if mesh is None:
-        return _pick_renderer(scene, cfg, renderer)
-    return _pick_renderer_sharded(scene, cfg, mesh, renderer)
 
 
 def _mesh_context(mesh_spec, scene, device):
@@ -289,36 +165,54 @@ def _posed(scene, cfg: RenderConfig, t: float, cam_offset: torch.Tensor,
         frame._replace(origin=frame.origin + cam_offset))
 
 
-def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
-                     renderer: str = "auto", mesh=None,
-                     debug_nans: bool = False):
-    """(t, cam_offset) -> frame bytes on the scene's device. ``cam_offset``
-    is a world-frame camera translation driven by arrow keys (extension;
-    reference stub at TerminalRayTracer.c:1196-1215).
-
-    ``encode``: 'device' returns the full ANSI buffer; 'host' returns the
-    compact (H, W, 3) uint8 frame, which the host expands. ``mesh`` (a
-    ``parallel.mesh`` device mesh) renders the frame over its ranks
-    (``_pick_renderer_sharded``); rank 0 alone gets the frame's bytes, the
-    others None. ``debug_nans``: ``_finite_check``. Where
-    ``step_graph.engages``, the step is a ``step_graph.GraphedStep``:
-    captured on its first call, replayed after."""
+def _frame_body(scene, cfg: RenderConfig, route, enc, debug_nans: bool):
+    """(t, cam_offset) -> ``enc`` of the frame at scene time t through
+    ``route`` (``routes.Route``), ``scene`` seen from the orbit camera
+    moved by ``cam_offset``: the ``pose`` span, the route's frame,
+    ``_finite_check``, then the ``quantize`` span."""
     device = scene.spheres.radius.device
-    render_fn = _pick(scene, cfg, renderer, mesh)
-    enc = _encoder(cfg, encode, device, mesh)
     check = _finite_check(debug_nans)
 
-    def frame_step(t, cam_offset: torch.Tensor):
+    def body(t, cam_offset: torch.Tensor):
         with span("pose"):
             s = _posed(scene, cfg, t, cam_offset, device)
-        fb, _ = render_fn(s, cfg, count_rays=False)
+        fb = route.frame(s, t)
         check(fb, t)
         with span("quantize"):
             return enc(fb)
 
-    if step_graph.engages(device, render_fn, mesh, debug_nans):
-        return step_graph.GraphedStep(frame_step, cfg.dtype, device)
-    return step_graph.eager(frame_step, device)
+    return body
+
+
+def _frame_step(scene, cfg: RenderConfig, route, encode: str, mesh,
+                debug_nans: bool):
+    """``_frame_body`` of ``route`` with ``_encoder``'s encoder: a
+    ``step_graph.GraphedStep`` where ``step_graph.engages``, captured on
+    its first call and replayed after; else the body, counted eager."""
+    device = scene.spheres.radius.device
+    body = _frame_body(scene, cfg, route,
+                       _encoder(cfg, encode, device, mesh), debug_nans)
+    if step_graph.engages(device, route, debug_nans):
+        return step_graph.GraphedStep(body, cfg.dtype, device)
+    return step_graph.eager(body, device)
+
+
+def build_frame_step(scene, cfg: RenderConfig, encode: str = "device",
+                     renderer: str = "auto", mesh=None,
+                     debug_nans: bool = False):
+    """(t, cam_offset) -> frame bytes on the scene's device, through
+    ``routes.pick``'s route. ``cam_offset`` is a world-frame camera
+    translation driven by arrow keys (extension; reference stub at
+    TerminalRayTracer.c:1196-1215).
+
+    ``encode``: 'device' returns the full ANSI buffer; 'host' returns the
+    compact (H, W, 3) uint8 frame, which the host expands. ``mesh`` (a
+    ``parallel.mesh`` device mesh) renders the frame over its ranks; rank
+    0 alone gets the frame's bytes, the others None. ``debug_nans``:
+    ``_finite_check``. Graphed where ``step_graph.engages``
+    (``_frame_step``)."""
+    route = routes.pick(scene, cfg, renderer, mesh=mesh)
+    return _frame_step(scene, cfg, route, encode, mesh, debug_nans)
 
 
 def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
@@ -326,14 +220,14 @@ def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
     """(t0, cam_offset) -> the (batch, H, W, 3) uint8 frames at scene times
     t0 + k / fps (k < batch, computed in the config's dtype as JAX's
     ``build_frame_batch_step``, app.py:302-334, computes them), rendered by
-    ``_pick_renderer``'s path into one tensor on the scene's device, for
+    ``routes.pick``'s route into one tensor on the scene's device, for
     one copy to the host. Frame k equals ``build_frame_step(...,
     'host')`` at that time, bit for bit: the times are added on the
     scene's device, and a float32 addition has the same bits everywhere.
     Graphed as ``build_frame_step`` is, with t0 the graph's input."""
     device = scene.spheres.radius.device
-    render_fn = _pick_renderer(scene, cfg, renderer)
-    check = _finite_check(debug_nans)
+    route = routes.pick(scene, cfg, renderer)
+    frame = _frame_body(scene, cfg, route, encode_rgb_frame, debug_nans)
     step = (torch.arange(batch, dtype=cfg.dtype) * torch.tensor(
         cfg.frame_duration, dtype=cfg.dtype)).to(device)
 
@@ -343,15 +237,10 @@ def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
                           dtype=torch.uint8, device=device)
         ts = t0 + step
         for k in range(batch):
-            with span("pose"):
-                s = _posed(scene, cfg, ts[k], cam_offset, device)
-            fb, _ = render_fn(s, cfg, count_rays=False)
-            check(fb, ts[k])
-            with span("quantize"):
-                out[k] = encode_rgb_frame(fb)
+            out[k] = frame(ts[k], cam_offset)
         return out
 
-    if step_graph.engages(device, render_fn, None, debug_nans):
+    if step_graph.engages(device, route, debug_nans):
         return step_graph.GraphedStep(batch_body, cfg.dtype, device)
 
     def batch_step(t0: float, cam_offset: torch.Tensor) -> torch.Tensor:
@@ -361,58 +250,21 @@ def build_frame_batch_step(scene, cfg: RenderConfig, batch: int,
     return step_graph.eager(batch_step, device)
 
 
-def _frame_generator(seed: int, device) -> torch.Generator:
-    """The eager estimator's random stream: a generator on ``device``."""
-    return torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
-
-
 def build_pathtrace_frame_step(scene, cfg: RenderConfig,
                                encode: str = "device", seed: int = 0,
                                renderer: str = "auto", mesh=None,
                                debug_nans: bool = False):
     """(t, cam_offset) -> frame bytes by Monte-Carlo path tracing with the
     demo's area light (``ttrt.app.build_pathtrace_frame_step``,
-    app.py:56-167). Each frame draws its own stream from ``seed`` and the
-    scene time: the kernel takes the JAX app's frame seed
-    (``kernels.pathtrace.frame_seed``), the eager estimator a generator
-    seeded with it. Over a ``mesh`` (app.py:81-123) every rank renders the
-    whole image at spp/n_devices from its own stream of that seed
-    (``parallel.sharding``), through the path the single device would
-    take; the mesh may have no objects axis. ``debug_nans``:
-    ``_finite_check``."""
-    device = scene.spheres.radius.device
-    lights = estimator.default_area_lights(cfg, device)
-    use_kernel = _pick_pathtracer(scene, lights, cfg, renderer, mesh)
-    if mesh is not None:
-        sharding.check_pathtrace_mesh(cfg, mesh)
-    enc = _encoder(cfg, encode, device, mesh)
-    check = _finite_check(debug_nans)
-
-    def frame_step(t: float, cam_offset: torch.Tensor):
-        with span("pose"):
-            s = _posed(scene, cfg, t, cam_offset, device)
-        fseed = pathtrace.frame_seed(seed, t)
-        if use_kernel:
-            PATH_STEPS.kernel += 1
-        else:
-            PATH_STEPS.estimator += 1
-        if mesh is not None and use_kernel:
-            fb = sharding.pathtrace_frame_sharded_kernel(s, lights, cfg,
-                                                         fseed, mesh)
-        elif mesh is not None:
-            fb = sharding.pathtrace_frame_sharded(s, lights, cfg, fseed,
-                                                  mesh)
-        elif use_kernel:
-            fb, _ = pathtrace.pathtrace_frame(s, lights, cfg, fseed,
-                                              count_rays=False)
-        else:
-            fb = estimator.pathtrace_frame(
-                s, lights, cfg, _frame_generator(fseed, device))
-        check(fb, t)
-        with span("quantize"):
-            return enc(fb)
-
-    return step_graph.eager(frame_step, device)
+    app.py:56-167), through ``routes.pick``'s path-traced route: each
+    frame draws its own stream from ``seed`` and the scene time. Over a
+    ``mesh`` (app.py:81-123) every rank renders the whole image at
+    spp/n_devices from its own stream of that seed (``parallel.sharding``),
+    through the path the single device would take; the mesh may have no
+    objects axis. ``debug_nans``: ``_finite_check``."""
+    route = routes.pick(scene, cfg, renderer, mesh=mesh, pathtrace=True,
+                        seed=seed)
+    return _frame_step(scene, cfg, route, encode, mesh, debug_nans)
 
 
 class FrameSync:
@@ -476,9 +328,9 @@ def run_animation(cfg: RenderConfig, skybox_name: str = "colors",
     host in a small thread pool; camera input takes effect ``pipeline``
     frames later. ``stream`` is the byte sink for the frames (stdout by
     default); ``timers`` collects the per-stage times. ``scene`` defaults
-    to the demo scene; ``renderer`` is ``_pick_renderer``'s, or with
-    ``pathtrace`` (Monte-Carlo path tracing from ``seed``)
-    ``_pick_pathtracer``'s. ``mesh_spec`` (``--mesh``) renders over a
+    to the demo scene; ``renderer`` is ``routes.pick``'s, with
+    ``pathtrace`` Monte-Carlo path tracing from ``seed``. ``mesh_spec``
+    (``--mesh``) renders over a
     device mesh (``parallel.mesh.open_mesh``: the launcher's process
     group, or a one-rank group made here and torn down on return); rank 0
     runs this loop and writes the frames, the other ranks render until it
@@ -728,7 +580,7 @@ def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
                 stats: bool = False, debug_nans: bool = False) -> float:
     """The physics tier (``ttrt.app.run_physics``, app.py:675-753): the
     demo's spheres dropped under gravity, stepped with GJK contacts every
-    frame (``physics.demo``) and rendered by ``_pick_renderer``'s path, in
+    frame (``physics.demo``) and rendered by ``routes.pick``'s route, in
     ``run_animation``'s loop. With ``checkpoint`` the state is resumed from
     that file when it exists and saved to it on exit. ``timers`` gets the
     stage 'physics' (within 'render+copy') besides the loop's. ``encode``
@@ -745,7 +597,7 @@ def run_physics(cfg: RenderConfig, skybox_name: str = "colors",
             log(f"resumed physics state at t={float(state.t):.2f}s")
     timers = timers if timers is not None else StageTimers()
     step = build_physics_frame_step(scene, cfg, params,
-                                    _pick_renderer(scene, cfg, renderer),
+                                    routes.pick(scene, cfg, renderer).fn,
                                     timers=timers)
     enc = _encoder(cfg, encode, device, None)
     check = _finite_check(debug_nans)
@@ -806,27 +658,27 @@ def render_still(cfg: RenderConfig, skybox_name: str, t: float,
         s = scene.with_camera_frame(
             orbit_camera_frame(t, dtype=cfg.dtype, device=device))
         if pathtrace:
-            _check_f64_mesh_on_cpu(scene, cfg)
+            routes.check_f64_mesh_on_cpu(scene, cfg)
             lights = estimator.default_area_lights(cfg, device)
             if mesh is None:
                 fb = estimator.pathtrace_frame(
-                    s, lights, cfg, _frame_generator(seed, device))
+                    s, lights, cfg, routes.frame_generator(seed, device))
             else:
                 sharding.check_pathtrace_mesh(cfg, mesh)
                 fb = sharding.pathtrace_frame_sharded(s, lights, cfg, seed,
                                                       mesh)
         else:
-            render_fn = _pick(scene, cfg, renderer, mesh)
+            route = routes.pick(scene, cfg, renderer, mesh=mesh)
             if n_bands is None:
                 n_bands = 1
-                if (mesh is None and render_fn is integrator.render_frame
+                if (mesh is None and route.name == "eager"
                         and cfg.n_primary_rays > AUTO_BAND_RAYS):
                     n_bands = max(d for d in range(1, 17)
                                   if cfg.height % d == 0)
             if mesh is None and n_bands > 1:
                 fb, _ = integrator.render_frame_tiled(s, cfg, n_bands)
             else:
-                fb, _ = render_fn(s, cfg, count_rays=False)
+                fb = route.frame(s, t)
         if mesh is not None and dist.get_rank() != 0:
             return
     rgb = _to_host(encode_rgb_frame(fb))
@@ -949,7 +801,8 @@ def main(argv=None) -> int:
                         "ROWSxSAMPLESxOBJECTS (e.g. 2x2x2: adds the "
                         "geometry axis for --scene many); the shape must "
                         "tile the ranks")
-    p.add_argument("--renderer", choices=list(RENDERERS), default="auto",
+    p.add_argument("--renderer", choices=list(routes.RENDERERS),
+                   default="auto",
                    help="render path: a kernel or the eager integrator "
                         "(with --pathtrace: the eager estimator); auto "
                         "picks the kernel unless --f64 (or, with "

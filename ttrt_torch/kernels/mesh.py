@@ -21,6 +21,7 @@ import torch
 from ttrt_torch.config import ConfigError
 from ttrt_torch.mesh.clusters import ClusterPack, KernelTables
 from ttrt_torch.mesh.dense import NearestHit, nearest_arrays
+from ttrt_torch.utils.profiling import counted
 from ttrt_torch.vec import Vec3
 
 MODES = {"cull": 0, "dense": 1}
@@ -44,6 +45,7 @@ def _float32_rays(o: Vec3, d: Vec3) -> list:
     return rays
 
 
+@counted
 def cluster_nearest_plain(pack: Union[ClusterPack, KernelTables], o: Vec3,
                           d: Vec3) -> NearestHit:
     """The kernel's ``mode="dense"`` in plain PyTorch: every real object of
@@ -53,7 +55,6 @@ def cluster_nearest_plain(pack: Union[ClusterPack, KernelTables], o: Vec3,
     is the lowest id."""
     tab = _tables(pack)
     rays = _float32_rays(o, d)
-    cluster_nearest_plain.launches += 1
     s_ids, s_ord = torch.sort(tab.sph_id[tab.sph_id >= 0])
     t_ids, t_ord = torch.sort(tab.tri_id[tab.tri_id >= 0])
     sph = tab.sph[tab.sph_id >= 0][s_ord]
@@ -67,9 +68,7 @@ def cluster_nearest_plain(pack: Union[ClusterPack, KernelTables], o: Vec3,
     return NearestHit(gh.t, obj.to(torch.int32))
 
 
-cluster_nearest_plain.launches = 0
-
-
+@counted
 def cluster_nearest_cuda(pack: Union[ClusterPack, KernelTables], o: Vec3,
                          d: Vec3, *, mode: str = "cull") -> NearestHit:
     """Launch the CUDA kernel (csrc/mesh.cu, ``ttrt_cluster_nearest``): one
@@ -101,11 +100,7 @@ def cluster_nearest_cuda(pack: Union[ClusterPack, KernelTables], o: Vec3,
     if rc != 0:
         raise RuntimeError(
             f"cluster_nearest kernel launch failed: CUDA error {rc}")
-    cluster_nearest_cuda.launches += 1
     return NearestHit(out_t, out_id)
-
-
-cluster_nearest_cuda.launches = 0
 
 
 def cluster_nearest(pack: Union[ClusterPack, KernelTables], o: Vec3,

@@ -38,7 +38,7 @@ from ttrt_torch.kernels.render import (_bounce_chain, _F32_EPSILON,
 from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.dense import (_tri_t, chunks, nearest_arrays,
                                    sphere_blocks)
-from ttrt_torch.utils.profiling import span
+from ttrt_torch.utils.profiling import counted, span
 from ttrt_torch.vec import Vec3
 
 
@@ -143,6 +143,7 @@ def mesh_trace(sph, tri, ox, oy, oz, dx, dy, dz) -> _TraceOut:
         torch.where(hit, pick(7, 15), 0.0), pick(8, 16))
 
 
+@counted
 def render_band_mesh_fused_plain(
     scene, cfg: RenderConfig, row_offset: float = 0.0,
     n_rows: Optional[int] = None, *, sample_offset: float = 0.0,
@@ -153,7 +154,6 @@ def render_band_mesh_fused_plain(
     ``sample_offset..`` and its trace count (bounces + hits x n_lights).
     ``reduce='avg'`` scales the sample sum by 1/N, ``'sum'`` leaves it."""
     check_supported(scene, cfg)
-    render_band_mesh_fused_plain.launches += 1
     n_rows = cfg.height if n_rows is None else n_rows
     n_samples = cfg.rays_per_pixel if n_samples is None else n_samples
     with span("pack"):
@@ -183,9 +183,6 @@ def render_band_mesh_fused_plain(
                              len(dl_vals) + len(pl_vals))
 
 
-render_band_mesh_fused_plain.launches = 0
-
-
 def render_frame_mesh_fused_plain(scene, cfg: RenderConfig
                                   ) -> Tuple[Vec3, torch.Tensor]:
     """The whole frame through the plain version."""
@@ -197,6 +194,7 @@ def render_frame_mesh_fused_plain(scene, cfg: RenderConfig
 # ---------------------------------------------------------------------------
 
 
+@counted
 def render_band_mesh_fused_cuda(
     scene, cfg: RenderConfig, row_offset: float = 0.0,
     n_rows: Optional[int] = None, *, sample_offset: float = 0.0,
@@ -254,11 +252,7 @@ def render_band_mesh_fused_cuda(
             scale, out.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused mesh kernel launch failed: CUDA error {rc}")
-    render_band_mesh_fused_cuda.launches += 1
     return Vec3(out[0], out[1], out[2]), counts.sum(dtype=torch.int64)
-
-
-render_band_mesh_fused_cuda.launches = 0
 
 
 LAYOUT_KEYS = ("sample_threads", "pixels_per_block",

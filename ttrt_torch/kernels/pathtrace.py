@@ -62,7 +62,7 @@ from ttrt_torch.kernels.render import (PLANE_FLOATS, SKY_KINDS, SPHERE_FLOATS,
 from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.scene import MeshScene
 from ttrt_torch.scene import Scene
-from ttrt_torch.utils.profiling import span
+from ttrt_torch.utils.profiling import counted, span
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
 
 MASK32 = 0xFFFFFFFF
@@ -405,6 +405,7 @@ def _traced_paths(cam: torch.Tensor, al: torch.Tensor, tracer, skybox,
             torch.stack([nearest, hits, unblocked]))
 
 
+@counted
 def pathtrace_frame_plain(scene, lights, cfg: RenderConfig,
                           seed: int, *, count_rays: bool = True,
                           reduce: str = "mean",
@@ -421,7 +422,6 @@ def pathtrace_frame_plain(scene, lights, cfg: RenderConfig,
     their work."""
     check_supported(scene, lights, cfg)
     _check_reduce(reduce)
-    pathtrace_frame_plain.launches += 1
     with span("pack"):
         cam, al, tracer = _packed(scene, lights)
     with span("launch"):
@@ -431,9 +431,6 @@ def pathtrace_frame_plain(scene, lights, cfg: RenderConfig,
         n_rows = cfg.height if rows is None else len(rows)
         fb = Vec3(*(_reduce_samples(c, N, n_rows, W, reduce) for c in color))
     return fb, work if count_rays else None
-
-
-pathtrace_frame_plain.launches = 0
 
 
 def total_traces(work: torch.Tensor, n_lights: int) -> int:
@@ -519,6 +516,7 @@ def _launch_mesh(scene: MeshScene, lights, cfg: RenderConfig, seed: int,
             torch.cuda.current_stream(cam.device).cuda_stream), out, counts
 
 
+@counted
 def pathtrace_frame_cuda(scene, lights, cfg: RenderConfig, seed: int,
                          *, count_rays: bool = True, reduce: str = "mean"
                          ) -> Tuple[Vec3, Optional[torch.Tensor]]:
@@ -543,16 +541,12 @@ def pathtrace_frame_cuda(scene, lights, cfg: RenderConfig, seed: int,
     if rc != 0:
         raise RuntimeError(
             f"path-tracing kernel launch failed: CUDA error {rc}")
-    pathtrace_frame_cuda.launches += 1
     fb = Vec3(out[0], out[1], out[2])
     if not count_rays:
         return fb, None
     c = counts.to(torch.int64)
     return fb, torch.stack([(c[0] & 0xFFFF).sum(), (c[0] >> 16).sum(),
                             c[1].sum()])
-
-
-pathtrace_frame_cuda.launches = 0
 
 
 def pathtrace_layout(scene, lights, cfg: RenderConfig,

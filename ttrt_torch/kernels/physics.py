@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ttrt_torch.utils.profiling import counted
 from ttrt_torch.vec import Vec3
 
 MAX_THREADS = 1024  # a block's threads: one a body, one a pair
@@ -47,6 +48,7 @@ def takes(state, params) -> bool:
                     for x in _tensors(state, params)))
 
 
+@counted
 def physics_step_cuda(state, params, dt, substeps: int = 1):
     """``physics_step_plain(state, params, dt, substeps)`` in one launch of
     the physics step kernel on the current stream: a new state of 7 fresh
@@ -73,13 +75,9 @@ def physics_step_cuda(state, params, dt, substeps: int = 1):
     if rc != 0:
         raise RuntimeError(
             f"physics step kernel launch failed: CUDA error {rc}")
-    physics_step_cuda.launches += 1
     c = out[:6 * n].view(6, n)
     return state._replace(pos=Vec3(c[0], c[1], c[2]),
                           vel=Vec3(c[3], c[4], c[5]), t=out[6 * n])
-
-
-physics_step_cuda.launches = 0
 
 
 def physics_layout(n: int) -> dict:

@@ -63,7 +63,7 @@ import torch
 from ttrt_torch.config import ConfigError, RenderConfig, constants
 from ttrt_torch.render.skybox import CUBEMAP_AXES, U_AXIS, V_AXIS, _unpack
 from ttrt_torch.scene import Scene
-from ttrt_torch.utils.profiling import span
+from ttrt_torch.utils.profiling import counted, span
 from ttrt_torch.vec import Vec3, scalar_like, sqrt_rn
 
 CAM_FLOATS = 17
@@ -835,6 +835,7 @@ def _demo_frame(scene: Scene, cfg: RenderConfig,
     return fb, traces, chain[5]
 
 
+@counted
 def render_band_plain(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
                       n_rows: Optional[int] = None, *, sample_offset: int = 0,
                       n_samples: Optional[int] = None, reduce: str = "avg",
@@ -847,26 +848,19 @@ def render_band_plain(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
     ``count_rays`` is False."""
     check_supported(scene, cfg)
     band = Band.of(cfg, row_offset, n_rows, sample_offset, n_samples, reduce)
-    render_band_plain.launches += 1
     fb, traces, _ = _demo_frame(scene, cfg, band)
     return fb, traces if count_rays else None
 
 
-render_band_plain.launches = 0
-
-
+@counted
 def render_frame_plain(scene: Scene, cfg: RenderConfig, *,
                        count_rays: bool = True
                        ) -> Tuple[Vec3, Optional[torch.Tensor]]:
     """The whole-frame band of ``render_band_plain``: the (H, W) sample
     average and its trace count."""
     check_supported(scene, cfg)
-    render_frame_plain.launches += 1
     fb, traces, _ = _demo_frame(scene, cfg)
     return fb, traces if count_rays else None
-
-
-render_frame_plain.launches = 0
 
 
 def traces_from_pixel_sums(sums: torch.Tensor, n_lights: int
@@ -879,6 +873,7 @@ def traces_from_pixel_sums(sums: torch.Tensor, n_lights: int
     return ((sums & 0xFFFF) + ((sums >> 16) & 0xFFFF) * n_lights).sum()
 
 
+@counted
 def render_frame_pixel_rate_plain(scene: Scene, cfg: RenderConfig
                                   ) -> Tuple[Vec3, torch.Tensor]:
     """What ``_render_rays_pallas(..., accumulate=True)`` computes
@@ -888,7 +883,6 @@ def render_frame_pixel_rate_plain(scene: Scene, cfg: RenderConfig
     the trace count decoded from each pixel's sums of the per-sample
     fields repacked into 16|16 (:711-715)."""
     check_pixel_rate(scene, cfg)
-    render_frame_pixel_rate_plain.launches += 1
     fb, _, count = _demo_frame(scene, cfg)
     fields = ((count & 0x1F) | (((count >> 5) & 0x1F) << 16)).reshape(
         cfg.rays_per_pixel, cfg.height, cfg.width)
@@ -899,21 +893,15 @@ def render_frame_pixel_rate_plain(scene: Scene, cfg: RenderConfig
     return fb, traces_from_pixel_sums(sums, n_lights)
 
 
-render_frame_pixel_rate_plain.launches = 0
-
-
+@counted
 def sky_weights_plain(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """The per-ray sky weight of the bounce chain with no lighting and no
     shadow rays (``_sky_weight_kernel``, render_pallas.py:860-891), as an
     (N, H, W) float32 tensor, sample-major as the JAX rays: bit for bit the
     ``sky_w`` of the shaded chain."""
     check_supported(scene, cfg)
-    sky_weights_plain.launches += 1
     chain, _ = _demo_chain(scene, cfg, shade=False)
     return chain[4].reshape(cfg.rays_per_pixel, cfg.height, cfg.width)
-
-
-sky_weights_plain.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -983,6 +971,7 @@ def _launch_render(scene: Scene, cfg: RenderConfig, name: str,
     return out, counts
 
 
+@counted
 def render_band_cuda(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
                      n_rows: Optional[int] = None, *, sample_offset: int = 0,
                      n_samples: Optional[int] = None, reduce: str = "avg",
@@ -996,14 +985,11 @@ def render_band_cuda(scene: Scene, cfg: RenderConfig, row_offset: int = 0,
     check_supported(scene, cfg)
     band = Band.of(cfg, row_offset, n_rows, sample_offset, n_samples, reduce)
     out, counts = _launch_render(scene, cfg, "render_band_cuda", False, band)
-    render_band_cuda.launches += 1
     fb = Vec3(out[0], out[1], out[2])
     return fb, counts.sum(dtype=torch.int64) if count_rays else None
 
 
-render_band_cuda.launches = 0
-
-
+@counted
 def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
                       count_rays: bool = True
                       ) -> Tuple[Vec3, Optional[torch.Tensor]]:
@@ -1014,14 +1000,11 @@ def render_frame_cuda(scene: Scene, cfg: RenderConfig, *,
     ``count_rays`` is set."""
     check_supported(scene, cfg)
     out, counts = _launch_render(scene, cfg, "render_frame_cuda", False)
-    render_frame_cuda.launches += 1
     fb = Vec3(out[0], out[1], out[2])
     return fb, counts.sum(dtype=torch.int64) if count_rays else None
 
 
-render_frame_cuda.launches = 0
-
-
+@counted
 def render_frame_pixel_rate_cuda(scene: Scene, cfg: RenderConfig
                                  ) -> Tuple[Vec3, torch.Tensor]:
     """``render_frame_pixel_rate`` with the CUDA kernel
@@ -1030,13 +1013,9 @@ def render_frame_pixel_rate_cuda(scene: Scene, cfg: RenderConfig
     check_pixel_rate(scene, cfg)
     out, sums = _launch_render(scene, cfg, "render_frame_pixel_rate_cuda",
                                True)
-    render_frame_pixel_rate_cuda.launches += 1
     n_lights = scene.directional_lights.count + scene.point_lights.count
     return (Vec3(out[0], out[1], out[2]),
             traces_from_pixel_sums(sums, n_lights))
-
-
-render_frame_pixel_rate_cuda.launches = 0
 
 
 RENDER_LAYOUT_KEYS = ("sample_threads", "pixels_per_block",
@@ -1079,6 +1058,7 @@ def sky_weights_layout(scene: Scene, cfg: RenderConfig) -> dict:
         cfg.height, cfg.rays_per_pixel)
 
 
+@counted
 def sky_weights_cuda(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """``sky_weights`` with the CUDA kernel (``sky_weight_kernel``): one
     thread per ray, a pixel's samples on neighbouring threads, writes its
@@ -1097,11 +1077,7 @@ def sky_weights_cuda(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(
             f"sky-weight kernel launch failed: CUDA error {rc}")
-    sky_weights_cuda.launches += 1
     return out
-
-
-sky_weights_cuda.launches = 0
 
 
 def _on_cpu(scene) -> bool:

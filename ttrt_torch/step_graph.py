@@ -11,38 +11,24 @@ keeps its bits. The scene time and the camera offset are the graph's
 static inputs, written before each replay.
 
 ``engages`` is the rule: a step is graphed when nothing in it needs the
-host between its ops and every op is captured (``engages``' docstring).
+host between its ops and every op is captured: its route says so
+(``routes.Route.graphable``) and its device is a CUDA device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ttrt_torch.kernels import mesh_fused, render
-from ttrt_torch.utils.profiling import STEPS, span
-
-# the renderers a graph may hold: on CUDA tensors each dispatches to its
-# CUDA kernel wrapper (render_frame_cuda, render_band_mesh_fused_cuda),
-# which launches on torch's current stream through ctypes and reads no
-# device value on the host
-GRAPHED_RENDERERS = (render.render_frame,
-                     mesh_fused.render_frame_mesh_fused)
-
-# the wrappers whose ``launches`` a replay adds to
-COUNTED = (render.render_frame_cuda,
-           mesh_fused.render_band_mesh_fused_cuda)
+from ttrt_torch.utils.profiling import LAUNCHERS, STEPS, span
 
 
-def engages(device, render_fn, mesh=None, debug_nans: bool = False) -> bool:
-    """Whether a frame step on ``device`` through ``render_fn`` is
-    graphed: the device is a CUDA device, there is no ``mesh`` (its ranks
-    talk through collectives and rank 0's broadcast), ``debug_nans`` is
-    off (its check reads the framebuffer on the host), and ``render_fn``
-    is one of ``GRAPHED_RENDERERS``. The eager integrator, the path
-    tracer (its frame seed is a host value of each frame) and the physics
-    step (its scene changes each frame) are never graphed."""
-    return (torch.device(device).type == "cuda" and mesh is None
-            and not debug_nans and render_fn in GRAPHED_RENDERERS)
+def engages(device, route, debug_nans: bool = False) -> bool:
+    """Whether a frame step on ``device`` through ``route`` (a
+    ``routes.Route``) is graphed: the device is a CUDA device, the route
+    is ``graphable``, and ``debug_nans`` is off (its check reads the
+    framebuffer on the host)."""
+    return (torch.device(device).type == "cuda" and route.graphable
+            and not debug_nans)
 
 
 def eager(step, device):
@@ -72,8 +58,8 @@ class GraphedStep:
     output, so a frame still in flight (``--pipeline``, the batched loop)
     is not overwritten by the next replay. All of it runs on the current
     stream. A replay opens the span ``launch`` around the writes, the
-    replay and the copy, and adds the graph's launches to each
-    ``COUNTED`` wrapper's ``launches``."""
+    replay and the copy, and adds the graph's launches to the
+    ``launches`` of each ``profiling.counted`` wrapper it holds."""
 
     def __init__(self, body, dtype: torch.dtype, device):
         self.body = body
@@ -104,7 +90,7 @@ class GraphedStep:
         self._write(t, cam_offset)
         out = self.body(self.t, self.offset)
         STEPS.eager += 1
-        before = [fn.launches for fn in COUNTED]
+        before = {fn: fn.launches for fn in LAUNCHERS}
         graph = torch.cuda.CUDAGraph()
         # thread_local: the loops' copy threads may call the runtime
         with torch.cuda.device(self.device), torch.cuda.graph(
@@ -112,7 +98,7 @@ class GraphedStep:
             self.out = self.body(self.t, self.offset)
         # the capture ran the wrappers' Python but launched nothing
         self.launches = tuple((fn, fn.launches - n)
-                              for fn, n in zip(COUNTED, before)
+                              for fn, n in before.items()
                               if fn.launches != n)
         for fn, n in self.launches:
             fn.launches -= n

@@ -14,13 +14,13 @@ The reference's only instrumentation is the fps printout
     ``quantize``, ``device_wait``, ``copy``, ``encode`` and ``write``.
   - SETUP: the process's set-up, phase by phase, from its start to the
     end of its first frame's write (``SetupTimers``).
-  - STEPS: how the running loop's frame steps on a CUDA device ran:
-    replayed from a captured CUDA graph, or eagerly (``StepCounts``).
-  - PATH_STEPS: the route each of the running loop's path-traced frame
-    steps took: a path-tracing kernel, or the eager estimator
-    (``PathStepCounts``).
-  - PHYSICS_STEPS: the route each physics step took: the physics step
-    kernel, or the eager step (``PhysicsStepCounts``).
+  - STEPS, PATH_STEPS and PHYSICS_STEPS: the running loop's steps by
+    route (``RouteCounts``): a frame step on a CUDA device replayed from a
+    captured CUDA graph or run eagerly; a path-traced frame through a
+    kernel or the eager estimator; a physics step through its kernel or
+    the eager step.
+  - counted: a function's ``launches``, its calls that returned (every
+    kernel wrapper and plain version).
   - profile_trace: a torch.profiler trace of CPU and CUDA activity around
     a block, written as a Chrome trace (--profile DIR in the CLI).
 """
@@ -28,10 +28,12 @@ The reference's only instrumentation is the fps printout
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
+import weakref
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -100,67 +102,65 @@ def span(name: str):
     return NO_SPAN if rec is None else rec.stage(name)
 
 
-class StepCounts:
-    """The frame steps of the running loop on a CUDA device: ``replayed``,
-    each a replay of the step's captured CUDA graph (``step_graph``), and
-    ``eager``, each run op by op (a graphed step's first call included).
-    Steps on the CPU are not counted."""
+class RouteCounts:
+    """Steps counted by route: an int attribute a route, from 0. Each
+    frame loop starts every instance anew (``recording``)."""
 
-    def __init__(self):
+    _all: "weakref.WeakSet[RouteCounts]" = weakref.WeakSet()
+
+    def __init__(self, *routes: str):
+        self.routes = routes
         self.reset()
+        RouteCounts._all.add(self)
 
     def reset(self) -> None:
-        self.replayed = 0
-        self.eager = 0
+        for route in self.routes:
+            setattr(self, route, 0)
+
+    def add(self, route: str) -> None:
+        setattr(self, route, getattr(self, route) + 1)
 
 
-STEPS = StepCounts()
+# a frame step on a CUDA device (none on the CPU): replayed from its CUDA
+# graph (``step_graph``; a graphed step's first call is eager), or eager
+STEPS = RouteCounts("replayed", "eager")
+StepCounts = functools.partial(RouteCounts, "replayed", "eager")  # a STEPS
+# a path-traced frame step: a path-tracing kernel (its plain version on
+# the CPU), or the eager estimator
+PATH_STEPS = RouteCounts("kernel", "estimator")
+# a physics step (``physics/world.py::physics_step``): its kernel, or the
+# eager step
+PHYSICS_STEPS = RouteCounts("kernel", "eager")
+
+# every function that ``counted`` wraps, for ``step_graph`` to add a
+# replayed graph's launches to
+LAUNCHERS: List[Callable] = []
 
 
-class PathStepCounts:
-    """The path-traced frame steps of the running loop (``--pathtrace``)
-    by route, on any device: ``kernel``, each through a path-tracing
-    kernel (its plain version on the CPU), and ``estimator``, each through
-    the eager Monte-Carlo estimator."""
+def counted(fn: Callable) -> Callable:
+    """``fn`` with its attribute ``launches``: from 0, one more after each
+    call that returns. A kernel wrapper counts its launches, a plain
+    version its calls; ``LAUNCHERS`` holds each wrapped function."""
 
-    def __init__(self):
-        self.reset()
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        wrapper.launches += 1
+        return out
 
-    def reset(self) -> None:
-        self.kernel = 0
-        self.estimator = 0
-
-
-PATH_STEPS = PathStepCounts()
-
-
-class PhysicsStepCounts:
-    """The physics steps (``physics/world.py::physics_step``) by route, on
-    any device: ``kernel``, each one launch of the physics step kernel, and
-    ``eager``, each through the eager step (``physics_step_plain``)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.kernel = 0
-        self.eager = 0
-
-
-PHYSICS_STEPS = PhysicsStepCounts()
+    wrapper.launches = 0
+    LAUNCHERS.append(wrapper)
+    return wrapper
 
 
 @contextlib.contextmanager
 def recording(timers) -> Iterator[None]:
     """Make ``timers`` (anything with ``stage(name)``) the recorder of
     ``span`` for the block, then restore the one installed before. The
-    block is a frame loop: ``STEPS``, ``PATH_STEPS`` and ``PHYSICS_STEPS``
-    start anew with it and keep their counts after it, until the next
-    loop."""
+    block is a frame loop: every ``RouteCounts`` starts anew with it."""
     global _recorder
-    STEPS.reset()
-    PATH_STEPS.reset()
-    PHYSICS_STEPS.reset()
+    for counts in RouteCounts._all:
+        counts.reset()
     saved, _recorder = _recorder, timers
     try:
         yield
