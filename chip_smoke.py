@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (ttrt_torch) on one NVIDIA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 
 Phases, each followed by torch.cuda.synchronize(); any failure raises and
 exits non-zero:
@@ -78,8 +78,10 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
      sizes, bit for bit: bands of rows and sample slices (1, 3, 5 of 10
      samples, summed or averaged), sides that are no multiple of a block,
      33 samples (two rounds of sample threads), --specular, subtract, the
-     milky_way sky bilinear, and 240,000 spheres at 2 and 33 samples (the
-     boxes read in place): every instantiation the launch can choose.
+     milky_way sky bilinear, 240,000 spheres at 2 and 33 samples and 3
+     rows of the 100,000-sphere frame (trees 16 and 15 levels deep), and
+     SCENE_FILE's nine spheres over the floor: every instantiation the
+     launch can choose.
   B. cluster_nearest ("cull" and "dense") vs the dense tester on the
      frame's primary rays and on one bounce's rays; vs cluster_nearest_plain
      on three batches of the eager frame (eager_batches: the primary rays,
@@ -88,19 +90,29 @@ fused kernel and the cluster-culled nearest-hit kernel (csrc/mesh.cu):
   C. the fused kernel vs the JAX oracle stored in
      tests/data/torch_port_golden_mesh.npz, with phase 3's bar.
   D. timing with CUDA events: the fused kernel alone and with its wrapper
-     (visit order and packing), the plain version, the kernel alone and
+     (packing), the plain version, the kernel alone and
      with its wrapper at 100k spheres, and cluster_nearest's wrapper on the
      primary rays and the kernel alone on phase B's three batches; each
      kernel's bound, from the narrow tests its traces need (for the fused
      kernel, every trace of the frame, counted on one more run of the
-     plain version; for cluster_nearest each batch's, beside the narrow
+     plain version, with the flat sweep's slab tests; for cluster_nearest
+     each batch's, beside the narrow
      tests its index-order walk really makes and the walk's SIMT
      efficiency, walk_work); cluster_nearest's launch shape and ptxas
      lines; the fused kernel's launch shape at 10k and 100k
-     spheres (blocks, threads, waves, registers) and its ptxas lines; the
+     spheres (blocks, threads, waves, registers) and its ptxas lines;
+     walk_work on the fused frame's primary, bounce-3 and shadow rays
+     (fused_batches, from one more run of the plain version): slab and
+     narrow tests a trace and their SIMT efficiency, the flat sweep in
+     the frame's visit order against the tree walk, the same hits and
+     blockers; the
      10k frame as ten one-sample sum bands launched together on ten
      streams against the one launch (well under 1 would say the one
-     launch leaves the card idle) and one one-sample band alone.
+     launch leaves the card idle) and one one-sample band alone. With
+     --parent DIR (a parent checkout): the parent's fused kernel and
+     this one's alone in turns at 10k and 100k spheres, their frames
+     bit for bit equal, and the ptxas lines of pathtrace_mesh_kernel
+     and cluster_nearest_kernel equal to the parent's (parent_phase).
   E. the main paths of the many-object tier: 30 frames of run_animation
      (the fused kernel) and 2 frames with --renderer eager (the integrator,
      tracing through cluster_nearest), each with the launch counts set to
@@ -337,10 +349,11 @@ PT_ESTIMATOR_MEAN_TOL = 0.01
 class FusedCase(NamedTuple):
     """A band of the many-object scene (t = 3.3) for the fused kernel
     against its plain version: ``config`` the RenderConfig's fields,
-    ``band`` render_band_mesh_fused's row and sample arguments, ``staged``
-    whether the kernel stages the quarter boxes in shared memory,
-    ``rounds`` whether a pixel's samples take more than one round of its
-    sample threads (the four instantiations of mesh_fused_kernel)."""
+    ``band`` render_band_mesh_fused's row and sample arguments, ``rounds``
+    whether a pixel's samples take more than one round of its sample
+    threads (the two instantiations of mesh_fused_kernel), ``scene_file``
+    whether the spheres are SCENE_FILE's nine in place of ``spheres``
+    random ones (a tree of three leaves)."""
 
     key: str
     label: str
@@ -348,15 +361,15 @@ class FusedCase(NamedTuple):
     sky: str
     config: dict
     band: dict
-    staged: bool = True
     rounds: bool = False
+    scene_file: bool = False
 
 
-# The fused kernel's launch shapes that phase A's full-size frames do not
-# take, at sizes where the plain version runs in seconds (phase A and
-# tests/test_torch_cuda_mesh.py). 240,000 spheres make a box table of
-# 248,032 bytes, past a block's 232,448 bytes of shared memory: the
-# kernel's other instantiations read the boxes in place.
+# The fused kernel's launch shapes and packs that phase A's full-size
+# frames do not take, at sizes where the plain version runs in seconds
+# (phase A and tests/test_torch_cuda_mesh.py): 240,000 and 100,000
+# spheres walk trees 16 and 15 levels deep, the scene file's spheres one
+# of three leaves over the floor's.
 FUSED_CASES = (
     FusedCase("odd", "97x41, 3 spp: neither side a multiple of a block",
               2240, "colors", {"width": 97, "height": 41,
@@ -379,14 +392,20 @@ FUSED_CASES = (
     FusedCase("rounds", "33 spp: rounds of 17 and 16 sample threads", 2240,
               "colors", {"width": 29, "height": 13, "rays_per_pixel": 33},
               {}, rounds=True),
-    FusedCase("in_place", "240000 spheres: the boxes read in place",
+    FusedCase("in_place", "240000 spheres: a tree 16 levels deep",
               240_000, "colors", {"width": 32, "height": 16,
                                   "rays_per_pixel": 2, "bounce_limit": 4},
-              {}, staged=False),
-    FusedCase("in_place_rounds", "240000 spheres at 33 spp: the boxes read "
-              "in place, rounds of sample threads", 240_000, "colors",
+              {}),
+    FusedCase("in_place_rounds", "240000 spheres at 33 spp: a tree 16 "
+              "levels deep, rounds of sample threads", 240_000, "colors",
               {"width": 8, "height": 4, "rays_per_pixel": 33,
-               "bounce_limit": 4}, {}, staged=False, rounds=True),
+               "bounce_limit": 4}, {}, rounds=True),
+    FusedCase("rows_100k", "rows 131-133 of the 480x280x10 frame at 100000 "
+              "spheres, 10 bounces", 100_000, "colors", {},
+              {"row_offset": 131.0, "n_rows": 3}),
+    FusedCase("scene_file", "SCENE_FILE's 9 spheres over the floor, "
+              "uv_checker, 10 spp", 16, "uv_checker",
+              {"width": 61, "height": 37}, {}, scene_file=True),
 )
 
 class RenderCase(NamedTuple):
@@ -788,12 +807,17 @@ def fused_case(dev, case: FusedCase) -> dict:
     from ttrt_torch.config import RenderConfig
     from ttrt_torch.frames import orbit_camera_frame
     from ttrt_torch.kernels import mesh_fused
+    from ttrt_torch.mesh import bvh
     from ttrt_torch.mesh.scene import many_sphere_scene
+    from ttrt_torch.scenefile import scene_from_dict
 
     cfg = RenderConfig(**case.config)
     scene = many_sphere_scene(assets.load_skybox(case.sky, device=dev),
                               case.spheres, cfg.width, cfg.height,
                               dtype=torch.float32, device=dev)
+    if case.scene_file:
+        scene = scene.with_spheres(scene_from_dict(
+            SCENE_FILE, cfg.width, cfg.height, device=dev).spheres)
     scene = scene.with_camera_frame(
         orbit_camera_frame(3.3, dtype=torch.float32, device=dev))
     band = dict(case.band)
@@ -817,12 +841,11 @@ def fused_case(dev, case: FusedCase) -> dict:
                                                                stats)
     n_samples = band.get("n_samples", cfg.rays_per_pixel)
     shape = mesh_fused.fused_layout(scene, cfg, n_rows, n_samples)
-    assert shape["boxes_staged"] == int(case.staged), (case.key, shape)
     assert (shape["sample_threads"] < n_samples) == case.rounds, (case.key,
                                                                   shape)
     stats["layout"] = {k: shape[k] for k in (
-        "sample_threads", "threads_per_block", "blocks", "smem_bytes",
-        "boxes_staged")}
+        "sample_threads", "threads_per_block", "blocks", "smem_bytes")}
+    stats["tree_depth"] = bvh.depth(scene.clusters.tables.nodes.shape[0])
     stats["kernel_s"], stats["plain_s"] = t1 - t0, t2 - t1
     return stats
 
@@ -1130,84 +1153,357 @@ def narrow_work(boxes, o, d, limit):
     return objs, flops
 
 
-def walk_work(pack, o, d) -> dict:
-    """Replay cluster_nearest_kernel's walk (csrc/mesh.cu, mode "cull") in
-    torch on the rays (o, d), quarter by quarter in index order,
-    vectorized over the rays: the slab test on the kernel tables' widened
-    boxes with the clamped 1/d, the skip of a quarter entered after the
-    running best t, and the quarter's narrow tests by
-    ``mesh.dense.nearest_arrays`` on its objects in id order, folded into
-    the running (t, id) with the lowest id winning a tie. Returns the
-    final ``hit`` (a NearestHit, which must equal the kernel's and
-    ``cluster_nearest_plain``'s bit for bit), the narrow tests of each ray
-    (``tests``), the box-table row of the first quarter each ray
-    narrow-tests (``first``, -1 for none), and for warps of 32
-    consecutive rays the lane tests, the
-    tests the warps issue (a quarter any lane takes costs its warp the
-    quarter's object count) and their ratio ``simt``, lane tests over 32
-    times the issued ones."""
+def _issued(warp, idx, per_lane, n_warps: int) -> int:
+    """Work that warps issue for their lanes ``idx`` doing ``per_lane``
+    each (one branch, lockstep): the sum over warps of their busiest
+    lane's."""
+    import torch
+
+    if idx.numel() == 0:
+        return 0
+    top = torch.zeros(n_warps, dtype=per_lane.dtype, device=per_lane.device)
+    top.scatter_reduce_(0, warp[idx], per_lane, "amax")
+    return int(top.sum())
+
+
+def _narrow(tab, is_tri: bool, pos, rays, tmax, shadow: bool):
+    """The kernels' narrow test of each ray (1-D components ``rays``)
+    against the object at its table position ``pos``: (t, hit), or with
+    ``shadow`` (None, blocked before ``tmax`` when it is not None) along
+    unit directions. The arithmetic of ``mesh.dense``, elementwise."""
+    from ttrt_torch.mesh.dense import _sphere_t, _tri_t, sphere_blocks
+    from ttrt_torch.vec import scalar_like
+
+    ox, oy, oz, dx, dy, dz = rays
+    if is_tri:
+        t, hit = _tri_t(*tab.tri[pos, :9].unbind(1), ox, oy, oz, dx, dy, dz)
+        if shadow:
+            return None, hit if tmax is None else hit & (t < tmax)
+        return t, hit
+    c = tab.sph[pos].unbind(1)
+    if shadow:
+        soo = ox * ox + oy * oy + oz * oz
+        od = ox * dx + oy * dy + oz * dz
+        return None, sphere_blocks(*c, ox, oy, oz, dx, dy, dz, soo, od, tmax)
+    a = dx * dx + dy * dy + dz * dz
+    inv2a = scalar_like(0.5, a) / a
+    od = ox * dx + oy * dy + oz * dz
+    oo = ox * ox + oy * oy + oz * oz
+    return _sphere_t(*c, ox, oy, oz, dx, dy, dz, od, oo, 4.0 * a, inv2a)
+
+
+def _slab(lo, hi, rays, inv):
+    """(entry, pass) of the kernels' slab test (mesh.cu quarter()) of each
+    ray against its box (lo, hi), (R, 3) rows."""
+    import torch
+
+    tn = tf = None
+    for i in range(3):
+        t1 = (lo[:, i] - rays[i]) * inv[i]
+        t2 = (hi[:, i] - rays[i]) * inv[i]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tn = near if tn is None else torch.maximum(tn, near)
+        tf = far if tf is None else torch.minimum(tf, far)
+    return tn, tf >= torch.clamp_min(tn, 0.0)
+
+
+def walk_work(pack, o, d, *, tree: bool = False, order=None,
+              shadow: bool = False, tmax=None, warp=None) -> dict:
+    """Replay a many-object walk of csrc/mesh.cu in torch on the rays
+    (o, d), vectorized over the rays, with the kernels' slab test (on the
+    kernel tables' widened boxes, the clamped 1/d) and their narrow tests
+    (``mesh.dense``'s arithmetic). The walk: the flat sweep of the quarter
+    boxes (``tree`` False), subcluster by subcluster in index order
+    (cluster_nearest_kernel) or in the visit ``order`` ((K,) subclusters;
+    the fused kernel's before its tree), skipping a quarter entered after
+    the ray's limit; or the fused kernel's walk of the pack's tree
+    (``tree``, BvhTracer): from the root, both children slab-tested, the
+    nearer that the ray enters before its limit taken, the other pushed,
+    a popped node entered after the limit skipped. The limit is the
+    running best t of a nearest-hit trace, which folds the hits with the
+    lowest id winning a tie; with ``shadow``, the any-hit shadow test
+    along unit directions, ``tmax`` (blockers before it only) or none,
+    which stops at the first blocker.
+
+    Returns ``hit`` (a NearestHit, which must equal the kernel's and the
+    plain versions' bit for bit) or with ``shadow`` ``blocked``; each
+    ray's narrow tests (``tests``) and slab tests (``slabs``); for the
+    flat walk ``first``, the box-table row of the first quarter a ray
+    narrow-tests (-1 for none); and for the warps (``warp``, each ray's
+    warp id; 32 consecutive rays by default) the lane tests, the tests
+    the warps issue and their ratio ``simt``, lane tests over 32 times
+    the issued ones, for the narrow tests and (``*_slabs``) the slab
+    tests. A warp issues, for each step of the walk, its busiest lane's
+    work: in the flat walk a quarter any lane takes costs its warp the
+    tests its lanes make there; in the tree walk a step of a lane at an
+    internal node costs the warp its busiest lane's slab tests (two, less
+    an empty child's), and one at a leaf its busiest lane's narrow
+    tests."""
     import torch
 
     from ttrt_torch.kernels.mesh import _float32_rays, _tables
-    from ttrt_torch.mesh.dense import NearestHit, nearest_arrays
-    from ttrt_torch.vec import Vec3
 
     tab = _tables(pack)
     rays = _float32_rays(o, d)
     R, dev = rays[0].numel(), rays[0].device
-    best_t = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
-    best_id = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    tests = torch.zeros(R, dtype=torch.int64, device=dev)
-    first = torch.full((R,), -1, dtype=torch.int64, device=dev)
-    n_warps = (R + 31) // 32
-    warp_tests = 0
+    if warp is None:
+        warp = torch.arange(R, device=dev) // 32
+    n_warps = int(warp.max()) + 1 if R else 0
     inv = []
     for dc in rays[3:]:
         m = torch.clamp_min(dc.abs(), 1e-12)
         inv.append(1.0 / torch.where(dc >= 0.0, m, -m))
-    qbox = tab.qbox
-    counts = qbox[:, 6].to(torch.int64).tolist()
-    for row, n in enumerate(counts):
-        if n == 0:
-            continue
-        lo, hi = qbox[row, :3], qbox[row, 3:6]
-        tn = tf = None
-        for i in range(3):
-            t1 = (lo[i] - rays[i]) * inv[i]
-            t2 = (hi[i] - rays[i]) * inv[i]
-            near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
-            tn = near if tn is None else torch.maximum(tn, near)
-            tf = far if tf is None else torch.minimum(tf, far)
-        take = (tf >= torch.clamp_min(tn, 0.0)) & ~(tn > best_t)
-        lanes = torch.zeros(n_warps * 32, dtype=torch.bool, device=dev)
-        lanes[:R] = take
-        warp_tests += int(lanes.view(n_warps, 32).any(1).sum()) * n
-        idx = torch.nonzero(take)[:, 0]
-        if idx.numel() == 0:
-            continue
-        tests[idx] += n
-        first[idx] = torch.where(first[idx] < 0, row, first[idx])
-        sub, q = divmod(row, 4)
-        is_tri = sub >= tab.kb_sph
-        base = (sub - tab.kb_sph if is_tri else sub) * 128 + q * 32
-        ids = (tab.tri_id if is_tri else tab.sph_id)[base:base + n]
-        ids, order = torch.sort(ids)
-        objs = (tab.tri[base:base + n, :9] if is_tri
-                else tab.sph[base:base + n])[order]
-        gh = nearest_arrays(None if is_tri else objs,
-                            objs if is_tri else None, 0,
-                            Vec3(*(r[idx] for r in rays[:3])),
-                            Vec3(*(r[idx] for r in rays[3:])))
-        cand = torch.where(gh.obj >= 0, ids[torch.clamp_min(gh.obj, 0).long()],
-                           -1)
+    if shadow:
+        blocked = torch.zeros(R, dtype=torch.bool, device=dev)
+        limit_all = (torch.full((R,), float("inf"), device=dev)
+                     if tmax is None else tmax.to(torch.float32))
+    best_t = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
+    best_id = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    tests = torch.zeros(R, dtype=torch.int64, device=dev)
+    slabs = torch.zeros(R, dtype=torch.int64, device=dev)
+    count = {"warp_tests": 0, "warp_slabs": 0}
+
+    def limit(idx):
+        return limit_all[idx] if shadow else best_t[idx]
+
+    def at(idx):
+        return [r[idx] for r in rays]
+
+    def narrow(idx, is_tri, pos, sel):
+        """Narrow-test rays idx at positions pos where sel, folding the
+        hits into their results; returns the hit mask."""
+        t, hit = _narrow(tab, is_tri, pos, at(idx), None if tmax is None
+                         else tmax[idx], shadow)
+        hit = hit & sel
+        if shadow:
+            blocked[idx] |= hit
+            return hit
+        ids = (tab.tri_id if is_tri else tab.sph_id)[pos]
         bt, bi = best_t[idx], best_id[idx]
-        win = (gh.t < bt) | ((gh.t == bt) & (cand >= 0) & (cand < bi))
-        best_t[idx] = torch.where(win, gh.t, bt)
-        best_id[idx] = torch.where(win, cand, bi).to(torch.int32)
-    lane_tests = int(tests.sum())
-    return {"hit": NearestHit(best_t, best_id), "tests": tests,
-            "first": first, "lane_tests": lane_tests, "warp_tests": warp_tests,
-            "simt": lane_tests / (32 * warp_tests) if warp_tests else 1.0}
+        win = hit & ~(t > bt) & ((t < bt) | (ids < bi))
+        best_t[idx] = torch.where(win, t, bt)
+        best_id[idx] = torch.where(win, ids, bi)
+        return hit
+
+    def lanes(idx, n):
+        """Count n tests (a tensor) of rays idx; returns the warps'."""
+        tests[idx] += n
+        count["warp_tests"] += _issued(warp, idx, n, n_warps)
+
+    if tree:
+        first = None
+        _walk_tree(tab, rays, inv, limit, narrow, lanes, slabs, count,
+                   warp, n_warps, blocked if shadow else None)
+    else:
+        first = _walk_flat(tab, rays, inv, order, limit, narrow, lanes,
+                           slabs, count, warp, n_warps,
+                           blocked if shadow else None)
+    lane_tests, lane_slabs = int(tests.sum()), int(slabs.sum())
+    out = {"tests": tests, "slabs": slabs, "first": first,
+           "lane_tests": lane_tests, "lane_slabs": lane_slabs, **count}
+    for kind in ("tests", "slabs"):
+        issued = count["warp_" + kind]
+        out["simt" if kind == "tests" else "slab_simt"] = (
+            out["lane_" + kind] / (32 * issued) if issued else 1.0)
+    if shadow:
+        out["blocked"] = blocked
+    else:
+        from ttrt_torch.mesh.dense import NearestHit
+
+        out["hit"] = NearestHit(best_t, best_id)
+    return out
+
+
+def _walk_flat(tab, rays, inv, order, limit, narrow, lanes, slabs, count,
+               warp, n_warps, blocked):
+    """walk_work's flat sweep; returns ``first``."""
+    import torch
+
+    R, dev = rays[0].numel(), rays[0].device
+    first = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    counts = tab.qbox[:, 6].to(torch.int64).tolist()
+    K = tab.kb_sph + tab.kb_tri
+    subs = range(K) if order is None else [int(s) for s in order]
+    every = torch.arange(R, device=dev)
+    for sub in subs:
+        is_tri = sub >= tab.kb_sph
+        for q in range(4):
+            row, n = 4 * sub + q, counts[4 * sub + q]
+            if n == 0:
+                continue
+            live = every if blocked is None else every[~blocked]
+            if live.numel() == 0:
+                return first
+            slabs[live] += 1
+            count["warp_slabs"] += _issued(
+                warp, live, torch.ones_like(live), n_warps)
+            box = tab.qbox[row].expand(live.numel(), 8)
+            tn, ok = _slab(box[:, :3], box[:, 3:6], [r[live] for r in rays],
+                           [v[live] for v in inv])
+            idx = live[ok & ~(tn > limit(live))]
+            if idx.numel() == 0:
+                continue
+            first[idx] = torch.where(first[idx] < 0, row, first[idx])
+            base = (sub - tab.kb_sph if is_tri else sub) * 128 + q * 32
+            done = torch.zeros(idx.numel(), dtype=torch.int64, device=dev)
+            stop = torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
+            for j in range(n):
+                pos = torch.full_like(idx, base + j)
+                done += (~stop).to(torch.int64)
+                hit = narrow(idx, is_tri, pos, ~stop)
+                if blocked is not None:
+                    stop |= hit
+            lanes(idx, done)
+    return first
+
+
+def _walk_tree(tab, rays, inv, limit, narrow, lanes, slabs, count, warp,
+               n_warps, blocked):
+    """walk_work's tree walk."""
+    import torch
+
+    from ttrt_torch.mesh import bvh
+
+    nodes = tab.nodes
+    P = nodes.shape[0] // 2
+    R, dev = rays[0].numel(), rays[0].device
+    tri0 = tab.kb_sph * 128
+    n_obj = nodes[:, 6].to(torch.int64)
+    first = nodes[:, 7].to(torch.int64)
+    depth = bvh.depth(nodes.shape[0])
+    stack = torch.zeros((R, depth + 1), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((R, depth + 1), dtype=torch.float32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    node = torch.ones(R, dtype=torch.int64, device=dev)
+
+    def enter(idx, rows):
+        """(entry, goes) of rays idx into nodes rows: a real box entered
+        before the ray's limit."""
+        box = nodes[rows]
+        tn, ok = _slab(box[:, :3], box[:, 3:6], [r[idx] for r in rays],
+                       [v[idx] for v in inv])
+        return tn, ok & (n_obj[rows] > 0) & ~(tn > limit(idx))
+
+    every = torch.arange(R, device=dev)
+    if n_obj[1] > 0:
+        slabs += 1
+        count["warp_slabs"] += _issued(warp, every, torch.ones_like(every),
+                                       n_warps)
+    _, go = enter(every, node)
+    active = every[go]
+    while active.numel():
+        leaf = node[active] >= P
+        inner = active[~leaf]
+        c = 2 * node[inner]
+        t0, go0 = enter(inner, c)
+        t1, go1 = enter(inner, c + 1)
+        real = (n_obj[c] > 0).to(torch.int64) + (n_obj[c + 1] > 0).to(
+            torch.int64)  # quarter() skips an empty node's slab test
+        slabs[inner] += real
+        count["warp_slabs"] += _issued(warp, inner, real, n_warps)
+        both = go0 & go1
+        right = t1 < t0
+        push = inner[both]
+        stack[push, sp[push]] = torch.where(right, c, c + 1)[both]
+        stack_t[push, sp[push]] = torch.where(right, t0, t1)[both]
+        sp[push] += 1
+        node[inner] = torch.where(both, torch.where(right, c + 1, c),
+                                  torch.where(go0, c, c + 1))
+        pop = [inner[~(go0 | go1)]]
+
+        ll = active[leaf]
+        rows = node[ll]
+        f, n = first[rows], n_obj[rows]
+        done = torch.zeros_like(ll)
+        stop = torch.zeros(ll.numel(), dtype=torch.bool, device=dev)
+        for j in range(int(n.max()) if ll.numel() else 0):
+            sel = (j < n) & ~stop
+            done += sel.to(torch.int64)
+            for is_tri in (False, True):
+                kind = (f >= tri0) == is_tri
+                pos = (f - (tri0 if is_tri else 0) + j)[kind]
+                hit = narrow(ll[kind], is_tri, pos, sel[kind])
+                if blocked is not None:
+                    stop[kind] |= hit
+        lanes(ll, done)
+        pop.append(ll[~stop])
+        active = inner[go0 | go1]
+        pending = torch.cat(pop)
+        while pending.numel():
+            empty = sp[pending] == 0
+            pending = pending[~empty]
+            sp[pending] -= 1
+            top = sp[pending]
+            skip = stack_t[pending, top] > limit(pending)
+            took = pending[~skip]
+            node[took] = stack[took, sp[took]]
+            active = torch.cat([active, took])
+            pending = pending[skip]
+
+
+def fused_batches(scene, cfg, bounce: int, pixels_per_block: int) -> dict:
+    """The rays the fused kernel traces in one frame, taken from a run of
+    its plain version (which makes the kernel's traces, bounce by
+    bounce): ``primary`` and ``bounce`` (at bounce ``bounce``, the live
+    rays), each (o, d, warp); and the shadow rays of the primary hits,
+    ``shadow_dl`` / ``shadow_pl`` for the first light of each kind, each
+    (p, l, tmax or None, warp). ``warp`` is the id of the kernel's warp
+    that traces each ray, for one round of sample threads (N <= 32): a
+    pixel's N samples on neighbouring threads, ``pixels_per_block``
+    pixels a block (``fused_layout``)."""
+    import torch
+
+    from ttrt_torch.config import constants
+    from ttrt_torch.kernels import mesh_fused
+    from ttrt_torch.vec import Vec3
+
+    n_px, N = cfg.width * cfg.height, cfg.rays_per_pixel
+    real_trace = mesh_fused.mesh_trace
+    real_shadow = mesh_fused._shadow_blocked
+    state = {"bounce": -1}
+    out = {}
+
+    def warp_of(i):
+        pix, k = i % n_px, i // n_px
+        per_block = (pixels_per_block * N + 31) // 32
+        return ((pix // pixels_per_block) * per_block
+                + ((pix % pixels_per_block) * N + k) // 32)
+
+    def trace(sph, tri, ox, oy, oz, dx, dy, dz):
+        hit = real_trace(sph, tri, ox, oy, oz, dx, dy, dz)
+        if state["bounce"] < 0:
+            state["contrib"] = torch.ones(n_px * N, device=ox.device)
+        state["bounce"] += 1
+        contrib = state["contrib"]
+        live = torch.nonzero(contrib > constants.CONTRIBUTION_EPS)[:, 0]
+        assert live.numel() == ox.numel(), (live.numel(), ox.numel())
+        contrib[live] = torch.where(hit.is_hit, contrib[live] * hit.refl,
+                                    0.0)
+        state["live"], state["hit"] = live, hit.is_hit
+        kind = {0: "primary", bounce: "bounce"}.get(state["bounce"])
+        if kind:
+            out[kind] = (Vec3(ox, oy, oz), Vec3(dx, dy, dz), warp_of(live))
+        return hit
+
+    def shadow(sph, tri, px, py, pz, lx, ly, lz, tmax):
+        kind = "shadow_dl" if tmax is None else "shadow_pl"
+        if state["bounce"] == 0 and kind not in out:
+            keep = torch.nonzero(state["hit"])[:, 0]
+            out[kind] = (Vec3(px[keep], py[keep], pz[keep]),
+                         Vec3(*(torch.broadcast_to(v, px.shape)[keep]
+                                for v in (lx, ly, lz))),
+                         None if tmax is None else tmax[keep],
+                         warp_of(state["live"][keep]))
+        return real_shadow(sph, tri, px, py, pz, lx, ly, lz, tmax)
+
+    mesh_fused.mesh_trace = trace
+    mesh_fused._shadow_blocked = shadow
+    try:
+        mesh_fused.render_band_mesh_fused_plain(scene, cfg)
+    finally:
+        mesh_fused.mesh_trace = real_trace
+        mesh_fused._shadow_blocked = real_shadow
+    return out
 
 
 def eager_batches(scene, cfg) -> list:
@@ -1424,6 +1720,42 @@ def ptxas_spills(report: str, name: str) -> dict:
         if m and entry:
             out[entry] = int(m.group(1))
     return out
+
+
+def parent_module(parent: str, module: str):
+    """Module ``module`` (a dotted path, such as
+    "ttrt_torch.kernels.build") of the checkout at ``parent``, loaded
+    beside this checkout's package, which its imports name."""
+    import importlib.util
+
+    path = os.path.join(parent, *module.split(".")) + ".py"
+    spec = importlib.util.spec_from_file_location(
+        "parent_" + module.replace(".", "_"), path)
+    out = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(out)
+    return out
+
+
+def parent_call(parent: str, module: str, name: str):
+    """Function ``name`` of the parent checkout's ``module``
+    (``parent_module``); each call runs with
+    ``ttrt_torch.kernels.build.load`` swapped for the parent's, so that
+    its wrappers launch the parent's kernels through the parent's C
+    interface. The parent's library builds from its own sources into its
+    own ``_build``. For timing a parent's kernel in this process."""
+    from ttrt_torch.kernels import build
+
+    parent_load = parent_module(parent, "ttrt_torch.kernels.build").load
+    fn = getattr(parent_module(parent, module), name)
+
+    def call(*args, **kw):
+        saved, build.load = build.load, parent_load
+        try:
+            return fn(*args, **kw)
+        finally:
+            build.load = saved
+
+    return call
 
 
 def on_streams(streams, calls) -> list:
@@ -1690,7 +2022,15 @@ def physics_states(world: str, device, frames: int):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    cli.add_argument("--parent", default="", help="a parent checkout: "
+                     "phase D times its fused kernel against this one's")
+    parent = cli.parse_args().parent
+    parent = os.path.abspath(parent) if parent else ""
 
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1844,7 +2184,7 @@ def main() -> int:
         "bound_by": render_bound[1],
         "library_ms": None,  # no single PyTorch call renders a frame
     }]
-    mesh_kernels, fused_work = mesh_phases(card, dev, full, report)
+    mesh_kernels, fused_work = mesh_phases(card, dev, full, report, parent)
     kernels += mesh_kernels
     kernels.append(pathtrace_phases(card, dev, full, report))
     kernels.append(pathtrace_mesh_phases(card, dev, full, report))
@@ -2135,11 +2475,50 @@ def runtime_phase(card: str, dev, full) -> int:
     return batch_launches
 
 
-def mesh_phases(card: str, dev, full, report: str) -> tuple:
+def parent_phase(card: str, parent: str, scenes, full, report: str) -> None:
+    """Phase D with a parent checkout: the fused kernel alone at each of
+    ``scenes``, the parent's and this checkout's in one process in turns
+    (parent, change, change, parent), after both frames are found equal
+    bit for bit; and the ptxas lines of the two other many-object kernels
+    in both builds, which must be equal line for line."""
+    import torch
+
+    from ttrt_torch.bench import _kernel_ms
+    from ttrt_torch.kernels import mesh_fused
+
+    sides = {"parent": parent_call(parent, "ttrt_torch.kernels.mesh_fused",
+                                   "render_band_mesh_fused_cuda"),
+             "change": mesh_fused.render_band_mesh_fused_cuda}
+    for scene in scenes:
+        fb = {k: fn(scene, full) for k, fn in sides.items()}
+        assert all(torch.equal(a, b) for a, b in zip(*(
+            [*v[0], v[1]] for v in fb.values()))), "parent != change"
+        ms = {k: [] for k in sides}
+        for side in ("parent", "change", "change", "parent"):
+            ms[side].append(_kernel_ms(lambda: sides[side](scene, full),
+                                       "mesh_fused_kernel", reps=5)[0])
+        print(f"phase D [{card}]: fused kernel alone at "
+              f"{scene.spheres.count} spheres, in turns (torch.profiler, "
+              f"means of 5), parent {ms['parent']} ms, change "
+              f"{ms['change']} ms; the frames bit for bit equal")
+    _, parent_report = parent_module(
+        parent, "ttrt_torch.kernels.build").build()
+    unnamed = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_mesh_cu_[0-9a-f]{8}")
+    for name in ("pathtrace_mesh_kernel", "cluster_nearest_kernel"):
+        lines = [[unnamed.sub("", line) for line in _ptxas_lines(r, name)]
+                 for r in (parent_report, report)]
+        assert lines[0] == lines[1] and lines[0], (name, lines)
+        print(f"phase D: {name}'s ptxas lines equal the parent's: "
+              f"{json.dumps(lines[1])}")
+
+
+def mesh_phases(card: str, dev, full, report: str,
+                parent: str = "") -> tuple:
     """Phases A-E; returns the two mesh kernels' entries of the kernels
-    line, and the work of phase D's fused frame (its scene time, traces,
-    and the FP32 operations and bytes of its bound). ``report`` is phase
-    1's compiler report."""
+    line, and phase D's fused frame (its scene time and traces).
+    ``report`` is phase 1's compiler report; ``parent``, a parent
+    checkout to time the fused kernel against (``parent_phase``), or
+    empty."""
     import torch
 
     from ttrt_torch import app, assets
@@ -2261,10 +2640,7 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
     n_quarters = boxes[0].shape[0]
     work = frame_work(scene, full, boxes)
     assert work["traces"] == work["plain_traces"] == rays, (work, rays)
-    fused_work = {"t": 3.3, "rays": rays,
-                  "ops": rays * n_quarters * SLAB_OPS + work["narrow_ops"],
-                  "bytes": table_bytes + 16 * full.width * full.height}
-    fused_bound = bound_ms(fused_work["ops"], fused_work["bytes"])
+    fused_work = {"t": 3.3, "rays": rays}
     per_kind = {k: [work[k][0], round(work[k][1] / max(work[k][0], 1), 2)]
                 for k in ("primary", "bounce", "shadow")}
     print(f"phase D [{card}]: fused kernel, 480x280x10spp, 10 bounces, "
@@ -2272,16 +2648,43 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
           f"ms/frame = {rays / fused_ms / 1e3:.1f} Mray/s (CUDA events, "
           f"median of 20), kernel {fused_kernel_ms:.4f} ms ({fused_how}), "
           f"plain version {fused_plain_ms:.3f} "
-          f"ms; bound {fused_bound[0]:.4f} ms by {fused_bound[1]} "
-          f"({n_quarters} slab tests a trace; narrow tests counted on every "
-          f"trace of the frame, [traces, mean a trace] by kind: "
-          f"{json.dumps(per_kind)}; {work['narrow_ops']:.6e} narrow-test "
-          f"operations)")
+          f"ms; no bound: the flat sweep's ({n_quarters} slab tests a "
+          f"trace) is no floor for the tree walk, whose own is not counted "
+          f"(the walk's work: walk_work below); the flat sweep's floor of "
+          f"narrow tests on every trace of the frame, [traces, mean a "
+          f"trace] by kind: {json.dumps(per_kind)}; "
+          f"{work['narrow_ops']:.6e} narrow-test operations)")
     shape = mesh_fused.fused_layout(scene, full)
     print(f"phase D: fused kernel's launch at {N_SPHERES} spheres: "
           f"{json.dumps(shape)}")
     for line in _ptxas_lines(report):
         print(f"phase D: ptxas: {line}")
+    # the walk's own work on the frame's traces (walk_work): the flat sweep
+    # in the frame's visit order, as the kernel walked before its tree,
+    # against the tree walk; the same hits and blockers
+    order = mesh_fused.order_subclusters(pack, scene.camera.frame.origin)
+    traces = fused_batches(scene, full, 3, shape["pixels_per_block"])
+    for kind, batch in traces.items():
+        shadow = kind.startswith("shadow")
+        n_b = batch[0].x.numel()
+        got, found = {}, []
+        for label, tree in (("flat", False), ("tree", True)):
+            walk = walk_work(pack, batch[0], batch[1], tree=tree,
+                             order=None if tree else order, shadow=shadow,
+                             tmax=batch[2] if shadow else None,
+                             warp=batch[-1])
+            found.append(walk["blocked"] if shadow else walk["hit"].obj)
+            got[label] = {
+                "slab": round(walk["lane_slabs"] / n_b, 2),
+                "narrow": round(walk["lane_tests"] / n_b, 2),
+                "slab_simt": round(walk["slab_simt"], 4),
+                "narrow_simt": round(walk["simt"], 4)}
+        assert torch.equal(found[0], found[1]), kind
+        print(f"phase D [{card}]: the fused frame's {kind} rays ({n_b}; "
+              f"bounce: bounce 3's, shadow: the primary hits'), walk_work "
+              f"a trace, flat sweep against tree walk (the same "
+              f"{'blockers' if shadow else 'hits'}): {json.dumps(got)}")
+    del traces
     streams = [torch.cuda.Stream() for _ in range(full.rays_per_pixel)]
     bands = [(lambda k=k: fused_cuda(scene, full, sample_offset=float(k),
                                      n_samples=1, reduce="sum"))
@@ -2346,6 +2749,8 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
           f"{int(big_rays) / big_ms / 1e3:.1f} Mray/s (median of 5), kernel "
           f"{big_kernel_ms:.4f} ms ({big_how}); "
           f"launch {json.dumps(mesh_fused.fused_layout(big, full))}")
+    if parent:
+        parent_phase(card, parent, (scene, big), full, report)
     del big
     torch.cuda.synchronize()
 
@@ -2388,8 +2793,8 @@ def mesh_phases(card: str, dev, full, report: str) -> tuple:
         "max_abs_err": fused_err,
         "ms": fused_ms,
         "plain_ms": fused_plain_ms,
-        "bound_ms": fused_bound[0],
-        "bound_by": fused_bound[1],
+        "bound_ms": None,  # the tree walk's floor is not counted
+        "bound_by": None,
         "library_ms": None,  # no single PyTorch call renders a frame
     }, {
         "name": "cluster_nearest",
@@ -2909,12 +3314,10 @@ def sky_phases(card: str, dev, full, fused_work: dict, report: str) -> list:
           f"call {rate_launches}")
 
     demo_bound_img = demo_bound(demo_rays, n_px, texel_bytes)
-    fused_bound = bound_ms(fused_work["ops"],
-                           fused_work["bytes"] + texel_bytes)
     print(f"phase S4-S6 [{card}]: bounds: textured demo "
           f"{demo_bound_img[0]:.4f} ms by {demo_bound_img[1]} ({demo_rays} "
-          f"traces, {texel_bytes} bytes of texels), textured fused "
-          f"{fused_bound[0]:.4f} ms by {fused_bound[1]}")
+          f"traces, {texel_bytes} bytes of texels); textured fused: none, "
+          f"as phase D's")
     def entry(**kw) -> dict:
         # no single PyTorch call renders a frame or a sky-weight map
         return {"route": "cuda", "library_ms": None, **kw}
@@ -2931,7 +3334,7 @@ def sky_phases(card: str, dev, full, fused_work: dict, report: str) -> list:
               replaces="ttrt/kernels/mesh_fused.py:1133",
               launches=path_launches[2], max_abs_err=fused_err,
               ms=fused_ms, plain_ms=fused_plain_ms,
-              bound_ms=fused_bound[0], bound_by=fused_bound[1]),
+              bound_ms=None, bound_by=None),
         entry(name="sky_weights",
               source="ttrt_torch/kernels/csrc/render.cu",
               replaces="ttrt/kernels/render_pallas.py:860",

@@ -1,5 +1,5 @@
-"""``chip_smoke.walk_work``, the replay of cluster_nearest_kernel's walk, on
-the CPU.
+"""``chip_smoke.walk_work``, the replay of the many-object kernels' walks,
+on the CPU.
 
 ``walk_work`` walks the kernel tables' quarters in index order over a ray
 batch, with the kernel's slab test, its skip of a quarter entered after
@@ -13,6 +13,8 @@ slab-tests (the kernel tables', widened by BOX_PAD). These tests check
 that on a small
 pack (a few hundred spheres and a floor), on the primary rays of a frame
 and on random rays, against the port's testers and JAX's dense tester.
+The replay of the fused kernel's walk of the pack's tree must find the
+same hits, and both walks' shadow replays the plain version's blockers.
 """
 
 import numpy as np
@@ -24,7 +26,8 @@ from ttrt.mesh.dense import dense_nearest as jax_dense_nearest
 
 import chip_smoke
 from ttrt_torch.config import RenderConfig
-from ttrt_torch.kernels import mesh
+from ttrt_torch.kernels import mesh, mesh_fused
+from ttrt_torch.mesh.clusters import pack_rows
 from ttrt_torch.mesh.dense import dense_nearest
 from ttrt_torch.render.integrator import generate_rays
 
@@ -138,3 +141,42 @@ def test_walk_simt_efficiency():
     assert walk["warp_tests"] >= int(per_warp.max(1).sum())
     assert 0.0 < walk["simt"] <= 1.0
     assert walk["simt"] == walk["lane_tests"] / (32 * walk["warp_tests"])
+
+
+@pytest.mark.parametrize("kind", ["primary", "random"])
+def test_tree_walk_hits_equal_the_plain_versions(kind):
+    """The replay of the fused kernel's tree walk finds the dense tester's
+    hits bit for bit, with fewer narrow tests than the flat sweep, and
+    every ray slab-tests the root."""
+    _, ts, o, d = _batch(kind)
+    tree = chip_smoke.walk_work(ts.clusters, _tv(o), _tv(d), tree=True)
+    flat = chip_smoke.walk_work(ts.clusters, _tv(o), _tv(d))
+    dense = dense_nearest(ts.spheres, ts.triangles, _tv(o), _tv(d))
+    assert torch.equal(tree["hit"].t, dense.t)
+    assert torch.equal(tree["hit"].obj, dense.obj.to(torch.int32))
+    assert tree["lane_tests"] < flat["lane_tests"]
+    assert tree["first"] is None and 0.0 < tree["slab_simt"] <= 1.0
+    assert tree["lane_slabs"] == int(tree["slabs"].sum())
+    assert bool((tree["slabs"] >= 1).all())
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_shadow_walks_find_the_plain_blockers(tree):
+    """Both walks' shadow replays (any-hit along unit directions, stopping
+    at the first blocker) block exactly the rays the plain version's
+    shadow test blocks, toward a point light (tmax) and a directional
+    one."""
+    _, ts, o, d = _batch("random")
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 20.0, len(o)).astype(np.float32))
+    sph, tri = pack_rows(ts.clusters)
+    od, dd = _tv(o), _tv(d)
+    for tm in (tmax, None):
+        want = mesh_fused._shadow_blocked(sph[:, :4], tri[:, :9], *od, *dd,
+                                          tm)
+        walk = chip_smoke.walk_work(ts.clusters, od, dd, tree=tree,
+                                    shadow=True, tmax=tm)
+        assert torch.equal(walk["blocked"], want)
+        assert int(want.sum()) > 50
+        assert walk["lane_tests"] >= int(want.sum())

@@ -80,6 +80,11 @@ def test_pad_pack_subclusters_matches_jax(n):
     want = jax_pad(js.clusters, n)
     got = objects.pad_pack_subclusters(ts.clusters.tables, n)
     assert got.kb_sph % n == 0 and got.kb_tri % n == 0
+    # the tree's leaves number the triangles from the unpadded kb_sph, so
+    # padded tables drop it
+    tables = ts.clusters.tables
+    padded = (got.kb_sph, got.kb_tri) != (tables.kb_sph, tables.kb_tri)
+    assert tables.nodes is not None and (got.nodes is None) == padded
     assert (got.kb_sph, got.kb_tri) == (want.sph_lo.shape[0],
                                         want.tri_lo.shape[0])
     for ids, table, row in ((got.sph_id, want.sph, 4),

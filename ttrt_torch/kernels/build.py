@@ -120,16 +120,16 @@ def load() -> ctypes.CDLL:
     # n_sph, n_dl, n_pl, W, H, N, out[10]
     lib.ttrt_sky_weights_layout.restype = ctypes.c_int
     lib.ttrt_sky_weights_layout.argtypes = [i] * 6 + [p]
-    # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, qbox, order,
+    # cam, dl, n_dl, pl, n_pl, 9 sphere/triangle tables, nodes, n_nodes,
     # kb_sph, kb_tri, W, H, N, n_rows, n_samples, bounce_limit, specular,
     # subtract, sky_kind, sky_dim, bilinear, texels, scale, out_rgb,
     # out_count, stream
     lib.ttrt_mesh_fused.restype = ctypes.c_int
-    lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 11 + [i] * 13
+    lib.ttrt_mesh_fused.argtypes = ([p, p, i, p, i] + [p] * 10 + [i] * 14
                                     + [p, f, p, p, p])
-    # kb_sph, kb_tri, n_dl, n_pl, W, n_rows, n_samples, out[11]
+    # n_dl, n_pl, W, n_rows, n_samples, out[10]
     lib.ttrt_mesh_fused_layout.restype = ctypes.c_int
-    lib.ttrt_mesh_fused_layout.argtypes = [i] * 7 + [p]
+    lib.ttrt_mesh_fused_layout.argtypes = [i] * 5 + [p]
     # ox oy oz dx dy dz, n, sph, sph_id, tri, tri_id, qbox, kb_sph, kb_tri,
     # mode, out_t, out_id, stream
     lib.ttrt_cluster_nearest.restype = ctypes.c_int

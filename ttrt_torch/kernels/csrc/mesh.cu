@@ -16,11 +16,12 @@
 // version the dense tester ttrt_torch/mesh/dense.py::dense_nearest.
 // pathtrace_mesh_kernel path-traces a MeshScene (--pathtrace --scene
 // many): pathtrace.cuh's trace_path, the demo path tracer's estimator and
-// random stream unchanged, over this file's MeshTracer, with the fused
-// kernel's staged boxes and sample threads. The JAX package has no such
-// kernel (its many-object path tracer is the eager estimator); its plain
-// version is ttrt_torch/kernels/pathtrace.py::pathtrace_frame_plain on a
-// MeshScene, which traces every object with the fused kernel's plain tests.
+// random stream unchanged, over this file's MeshTracer, with the staged
+// quarter boxes (stage_boxes) and the fused kernel's sample threads. The
+// JAX package has no such kernel (its many-object path tracer is the eager
+// estimator); its plain version is
+// ttrt_torch/kernels/pathtrace.py::pathtrace_frame_plain on a MeshScene,
+// which traces every object with the fused kernel's plain tests.
 //
 // Design of mesh_fused_kernel: one thread per (pixel, sample). A pixel's S
 // samples run on S neighbouring threads of one block (a whole band's
@@ -34,16 +35,12 @@
 // version's.
 // The full 480x280x10 frame is 11,200 blocks of 120 threads, about ten
 // waves at 8 blocks an SM, which the hardware block scheduler balances.
-// Each block first gathers the quarter-box table into the frame's visit
-// order in shared memory with cp.async, 16 bytes a copy (at 10k spheres
-// 88 subclusters, 11,616 bytes), so the walk reads a visited quarter's
-// two boxes with two shared loads and no order[i] lookup before them.
-// Past what a block can hold beside its samples, camera and lights
-// (about 1,760 subclusters, 225,000 spheres), the other instantiation
-// reads the table in place (SMEM_BOXES = false), as cluster_nearest_kernel
-// does. Neither keeps the TPU kernel's (ray tile, phase) grid, VMEM
-// state, sublane-class partials or two-level sweep, which worked around
-// the TPU's scalar-sync cost.
+// Each trace walks the pack's tree (BvhTracer, below): per ray, from the
+// root, near child first, with a stack of pushed far children in local
+// memory. The node table (at 10k spheres 8,192 nodes, 256 KB) is read in
+// place, through L1. Neither keeps the TPU kernel's (ray tile, phase)
+// grid, VMEM state, sublane-class partials or two-level sweep, which
+// worked around the TPU's scalar-sync cost.
 //
 // Design of cluster_nearest_kernel: one thread per ray, blocks of 128,
 // the eager integrator's batches of 1,344,000 rays about nine waves; it
@@ -51,21 +48,34 @@
 // 11,264-byte box table in shared memory lost on the bounce rays
 // (PERF.md); the table is read in place, through L1.
 //
-// The walk, the same in every layout: each trace walks the K subclusters in
-// the per-frame near-to-far order the wrapper computes (mesh_fused) or in
-// index order (cluster_nearest), slab-tests each subcluster's four quarter
-// AABBs with the clamped 1/d (mesh_fused.py:283-288, :602-622), skips a
-// quarter whose entry time is past the best t so far, and narrow-tests the
-// quarter's real objects (32 Morton-consecutive ones, fewer at the end of
-// the pack). nearest() takes a sphere's square root only for a hit (a
-// miss never uses it), and runs a quarter's narrow tests in a loop made
-// for its kind of object (narrow_quarter<TRI>), chosen once a subcluster.
-// Shadow rays take the same walk and stop at the first blocker. Only the
-// addresses the boxes come from differ (TableBoxes, StagedBoxes,
-// IndexBoxes). PERF.md records the walk bodies compared: making a
-// subcluster's four slab tests before its narrow tests (the same tests
-// in the same order) was faster on some nearest-hit batches and slower
-// on the fused kernel, so it went.
+// The flat walk of pathtrace_mesh_kernel and cluster_nearest_kernel
+// (nearest(), MeshTracer), the same in every layout: each trace walks the
+// K subclusters in the per-frame near-to-far order the wrapper computes
+// (pathtrace_mesh) or in index order (cluster_nearest), slab-tests each
+// subcluster's four quarter AABBs with the clamped 1/d
+// (mesh_fused.py:283-288, :602-622), skips a quarter whose entry time is
+// past the best t so far, and narrow-tests the quarter's real objects (32
+// Morton-consecutive ones, fewer at the end of the pack). nearest() takes
+// a sphere's square root only for a hit (a miss never uses it), and runs
+// a quarter's narrow tests in a loop made for its kind of object
+// (narrow_quarter<TRI>), chosen once a subcluster. Shadow rays take the
+// same walk and stop at the first blocker. Only the addresses the boxes
+// come from differ (TableBoxes, StagedBoxes, IndexBoxes). PERF.md records
+// the walk bodies compared: making a subcluster's four slab tests before
+// its narrow tests (the same tests in the same order) was faster on some
+// nearest-hit batches and slower on the fused kernel, so it went.
+//
+// The tree walk of mesh_fused_kernel (BvhTracer): the same slab test
+// (quarter()) on the nodes of a binary tree over single objects
+// (ttrt_torch/mesh/bvh.py: leaves of 4 Morton-consecutive objects of one
+// kind, the implicit complete tree over them, every box widened as the
+// quarter boxes are), the same narrow tests (narrow_quarter<TRI>, the
+// shadow rays' sqrt-free tests) on the leaves it reaches, in another
+// order. PERF.md records the walks compared: the per-ray walk with its
+// stack in local memory beat the same walk with the stack in a column of
+// shared memory, a bit a level in place of the stack (each far child
+// slab-tested again on its way back), a warp-uniform walk (a node entered
+// when any lane needs it) and leaves of 8 objects.
 // Sphere and triangle rows stay in device memory behind L1/L2: at 10k
 // spheres the pack is about 400 KB, more than a block's 227 KB of shared
 // memory.
@@ -86,9 +96,10 @@
 // (ttrt/mesh/scene.py:134-137), makes the result independent of the visit
 // order, and lets the culled kernels equal their exhaustive plain versions
 // bit for bit. The floor mesh's shared edges produce such ties. The culling
-// is exact because the kernel tables widen every quarter AABB
-// (ttrt_torch/mesh/clusters.py::BOX_PAD) by more than the narrow tests'
-// rounding can place a hit outside it.
+// is exact because the kernel tables widen every quarter AABB and tree
+// node (ttrt_torch/mesh/clusters.py::BOX_PAD) by more than the narrow
+// tests' rounding can place a hit outside it, and a node's box holds its
+// children's, so its float entry time is never later than theirs.
 //
 // What bounds them on this card: operations, not bytes. A batch of the
 // eager integrator (1,344,000 rays) needs 329 slab tests and 359-440
@@ -96,21 +107,18 @@
 // walk makes 1.1-1.2x those narrow tests, and on bounce rays the lanes of
 // a warp take different quarters (a warp issues about 7x its lanes'
 // tests on bounce 3's batch), which only a traversal change can undo.
-// For the fused kernel: a 480x280x10x10 frame
-// at 10k spheres reads the 0.7 MB pack and writes 2.2 MB, microseconds at
-// 3.35 TB/s, but performs 13.8 million traces, each with 329 slab tests
-// and hundreds of narrow tests (chip_smoke.py counts them; PERF.md gives
-// the 2.6 ms bound). What held the first, one-thread-a-pixel form at
-// 63x that bound (PERF.md, runs R-U): a grid of 1,050 blocks, all
-// resident at once, that lasted as long as its slowest 10-sample chain
-// (ten one-sample launches run together took 0.74 of one launch), and 200
-// bytes of register spills. The design answers with many short blocks,
-// launch bounds of 64 registers that the staged one-round instantiation
-// meets without a spill, and the staged boxes. What remains is the walk's
-// divergence: the rays of a warp live for different numbers of bounces,
-// its lanes wait for each other's traces, shadow rays and narrow tests,
-// and every trace slab-tests every quarter. A better walk is later work,
-// and needs the bound recounted.
+// For the fused kernel: a 480x280x10x10 frame at 10k spheres reads the
+// 0.7 MB pack and writes 2.2 MB, microseconds at 3.35 TB/s, but performs
+// 13.8 million traces. The flat sweep made 329 slab tests and hundreds of
+// narrow tests each (PERF.md's 2.6 ms bound counts them); the tree walk
+// makes about 180-200 slab tests and 40-70 narrow tests a trace
+// (chip_smoke.py's walk_work), about 1.2 ms of operations, and takes
+// about 30x that: each step waits on a dependent load of two nodes, and
+// the lanes of a warp walk different nodes. What held the one-thread-a-
+// pixel form at 63x the flat bound (PERF.md, runs R-U: a grid of 1,050
+// blocks that lasted as long as its slowest 10-sample chain) is answered
+// by many short blocks; the loads' latency, by launch bounds that keep 64
+// warps on an SM.
 
 #include <math_constants.h>
 
@@ -366,6 +374,61 @@ __device__ Nearest nearest(const MeshGeom& g, const Boxes& bx, float ox,
   return best;
 }
 
+// The hit record of a trace from o along d whose nearest object is b
+// (b.id >= 0): the object's material and finish_hit's point and normal.
+__device__ __forceinline__ Hit nearest_hit(const MeshGeom& g,
+                                           const Nearest& b, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz) {
+  Hit h;
+  if (b.tri) {
+    const float4 m = g.tri_mat[b.pos];
+    const float4 n = g.tri_nrm[b.pos];
+    h.cr = m.x; h.cg = m.y; h.cb = m.z; h.refl = m.w;
+    h.spec = g.tri_spec[b.pos];
+    finish_hit(h, b.t, ox, oy, oz, dx, dy, dz, nullptr, n.x, n.y, n.z);
+  } else {
+    const float4 m = g.sph_mat[b.pos];
+    const float4 c = g.sph[b.pos];
+    const float center[3] = {c.x, c.y, c.z};
+    h.cr = m.x; h.cg = m.y; h.cb = m.z; h.refl = m.w;
+    h.spec = g.sph_spec[b.pos];
+    finish_hit(h, b.t, ox, oy, oz, dx, dy, dz, center, 0.0f, 0.0f, 0.0f);
+  }
+  return h;
+}
+
+// Whether the object at table position pos (a triangle when is_tri)
+// blocks the shadow ray from p along the UNIT direction ld (a == 1),
+// before tmax only when has_tmax (point lights); soo = p.p, od = p.ld.
+// Sqrt-free for a sphere.
+__device__ __forceinline__ bool shadow_blocks(const MeshGeom& g, bool is_tri,
+                                              int pos, float px, float py,
+                                              float pz, float ldx, float ldy,
+                                              float ldz, float soo, float od,
+                                              bool has_tmax, float tmax) {
+  bool hit;
+  if (is_tri) {
+    float t;
+    hit = tri_t(g.tri + 3 * pos, px, py, pz, ldx, ldy, ldz, t);
+    if (has_tmax) hit = hit && t < tmax;
+  } else {
+    const float4 c = g.sph[pos];
+    const float co = dot_zyx(c.x, c.y, c.z, px, py, pz);
+    const float cc = soo - 2.0f * co + c.w;
+    const float cd = dot_zyx(c.x, c.y, c.z, ldx, ldy, ldz);
+    const float b = 2.0f * (od - cd);
+    const float disc = fmaf(b, b, -(4.0f * cc));
+    hit = disc >= 0.0f && b < 0.0f && cc > 0.0f;
+    if (has_tmax) {
+      // t0 < tmax  <=>  sqrt(disc) > -b - 2*tmax
+      const float rhs = -b - 2.0f * tmax;
+      hit = hit && (rhs < 0.0f || disc > rhs * rhs);
+    }
+  }
+  return hit;
+}
+
 // The many-object tracer for common.cuh's trace_sample.
 template <class Boxes>
 struct MeshTracer {
@@ -376,22 +439,7 @@ struct MeshTracer {
                        float dz) const {
     const Nearest b = nearest(g, bx, ox, oy, oz, dx, dy, dz);
     if (b.id < 0) return miss_hit(ox, oy, oz, dx, dy, dz);
-    Hit h;
-    if (b.tri) {
-      const float4 m = g.tri_mat[b.pos];
-      const float4 n = g.tri_nrm[b.pos];
-      h.cr = m.x; h.cg = m.y; h.cb = m.z; h.refl = m.w;
-      h.spec = g.tri_spec[b.pos];
-      finish_hit(h, b.t, ox, oy, oz, dx, dy, dz, nullptr, n.x, n.y, n.z);
-    } else {
-      const float4 m = g.sph_mat[b.pos];
-      const float4 c = g.sph[b.pos];
-      const float center[3] = {c.x, c.y, c.z};
-      h.cr = m.x; h.cg = m.y; h.cb = m.z; h.refl = m.w;
-      h.spec = g.sph_spec[b.pos];
-      finish_hit(h, b.t, ox, oy, oz, dx, dy, dz, center, 0.0f, 0.0f, 0.0f);
-    }
-    return h;
+    return nearest_hit(g, b, ox, oy, oz, dx, dy, dz);
   }
 
   // Any-hit shadow test from p along a UNIT direction (a == 1), blockers
@@ -411,32 +459,124 @@ struct MeshTracer {
                               ivx, ivy, ivz, tn);
         if (n == 0 || (has_tmax && tn > tmax)) continue;
         const int base = (is_tri ? sub - g.kb_sph : sub) * SUB + q * QBLOCK;
-        for (int j = 0; j < n; ++j) {
-          const int pos = base + j;
-          bool hit;
-          if (is_tri) {
-            float t;
-            hit = tri_t(g.tri + 3 * pos, px, py, pz, ldx, ldy, ldz, t);
-            if (has_tmax) hit = hit && t < tmax;
-          } else {
-            const float4 c = g.sph[pos];
-            const float co = dot_zyx(c.x, c.y, c.z, px, py, pz);
-            const float cc = soo - 2.0f * co + c.w;
-            const float cd = dot_zyx(c.x, c.y, c.z, ldx, ldy, ldz);
-            const float b = 2.0f * (od - cd);
-            const float disc = fmaf(b, b, -(4.0f * cc));
-            hit = disc >= 0.0f && b < 0.0f && cc > 0.0f;
-            if (has_tmax) {
-              // t0 < tmax  <=>  sqrt(disc) > -b - 2*tmax
-              const float rhs = -b - 2.0f * tmax;
-              hit = hit && (rhs < 0.0f || disc > rhs * rhs);
-            }
-          }
-          if (hit) return true;
-        }
+        for (int j = 0; j < n; ++j)
+          if (shadow_blocks(g, is_tri, base + j, px, py, pz, ldx, ldy, ldz,
+                            soo, od, has_tmax, tmax))
+            return true;
       }
     }
     return false;
+  }
+};
+
+// The fused kernel's walk: a per-ray, near-first walk of the tree over
+// single objects (ttrt_torch/mesh/bvh.py). `node` is the kernel tables'
+// node table, two float4 a node in the quarter boxes' layout (lo xyz hi.x
+// | hi.yz n_obj first), node 1 the root, nodes 2i and 2i+1 the children of
+// node i, nodes `leaves` .. 2 * leaves - 1 the leaves. A leaf holds n_obj
+// consecutive objects of one kind from position `first` of the kernels'
+// combined numbering (spheres 0 .., triangles kb_sph * SUB ..). The walk
+// slab-tests both children of a node with quarter(), goes into the nearer
+// one that the ray enters before its limit and pushes the other with its
+// entry time; a popped node entered after the limit is skipped. Its depth
+// is at most BVH_STACK (the C entry refuses a deeper table), so is the
+// stack.
+constexpr int BVH_STACK = 24;
+
+struct BvhTracer {
+  MeshGeom g;
+  const float4* node;
+  int leaves;
+
+  // Calls leaf(first, n) on each leaf the ray (o, 1/d) enters at a time no
+  // later than limit(), near child first, until leaf returns true.
+  template <class Limit, class Leaf>
+  __device__ __forceinline__ void walk(float ox, float oy, float oz,
+                                       float ivx, float ivy, float ivz,
+                                       Limit limit, Leaf leaf) const {
+    int stack[BVH_STACK];
+    float stack_t[BVH_STACK];
+    int sp = 0;
+    int at = 1;
+    float tn;
+    if (quarter(node, true, at, ox, oy, oz, ivx, ivy, ivz, tn) == 0 ||
+        tn > limit())
+      return;
+    for (;;) {
+      if (at >= leaves) {
+        const float4 b = node[2 * at + 1];
+        if (leaf((int)b.w, (int)b.z)) return;
+      } else {
+        const int c = 2 * at;
+        float t0, t1;
+        const bool go0 =
+            quarter(node, true, c, ox, oy, oz, ivx, ivy, ivz, t0) > 0 &&
+            !(t0 > limit());
+        const bool go1 =
+            quarter(node, true, c + 1, ox, oy, oz, ivx, ivy, ivz, t1) > 0 &&
+            !(t1 > limit());
+        if (go0 && go1) {
+          const bool right_first = t1 < t0;
+          stack[sp] = right_first ? c : c + 1;
+          stack_t[sp] = right_first ? t0 : t1;
+          ++sp;
+          at = right_first ? c + 1 : c;
+          continue;
+        }
+        if (go0 || go1) {
+          at = go0 ? c : c + 1;
+          continue;
+        }
+      }
+      do {
+        if (sp == 0) return;
+        --sp;
+      } while (stack_t[sp] > limit());
+      at = stack[sp];
+    }
+  }
+
+  __device__ Hit trace(float ox, float oy, float oz, float dx, float dy,
+                       float dz) const {
+    const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
+    Nearest b;
+    b.t = CUDART_INF_F;
+    b.id = -1;
+    b.pos = 0;
+    b.tri = false;
+    const int tri0 = g.kb_sph * SUB;
+    walk(ox, oy, oz, cinv(dx), cinv(dy), cinv(dz), [&] { return b.t; },
+         [&](int first, int n) {
+           if (first >= tri0)
+             narrow_quarter<true>(g, r, first - tri0, n, b);
+           else
+             narrow_quarter<false>(g, r, first, n, b);
+           return false;
+         });
+    if (b.id < 0) return miss_hit(ox, oy, oz, dx, dy, dz);
+    return nearest_hit(g, b, ox, oy, oz, dx, dy, dz);
+  }
+
+  // Any-hit shadow test from p along a UNIT direction (a == 1), blockers
+  // before tmax only when has_tmax (point lights): shadow_blocks on the
+  // leaves the walk reaches.
+  __device__ bool blocked(float px, float py, float pz, float ldx, float ldy,
+                          float ldz, bool has_tmax, float tmax) const {
+    const float soo = px * px + py * py + pz * pz;
+    const float od = px * ldx + py * ldy + pz * ldz;
+    const float limit = has_tmax ? tmax : CUDART_INF_F;
+    const int tri0 = g.kb_sph * SUB;
+    bool hit = false;
+    walk(px, py, pz, cinv(ldx), cinv(ldy), cinv(ldz), [&] { return limit; },
+         [&](int first, int n) {
+           const bool is_tri = first >= tri0;
+           const int base = is_tri ? first - tri0 : first;
+           for (int j = 0; j < n && !hit; ++j)
+             hit = shadow_blocks(g, is_tri, base + j, px, py, pz, ldx, ldy,
+                                 ldz, soo, od, has_tmax, tmax);
+           return hit;
+         });
+    return hit;
   }
 };
 
@@ -449,11 +589,13 @@ constexpr size_t SMEM_LIGHT_BYTES = 48 * 1024;
 // is the smallest of FUSED_BLOCK, 2 * FUSED_BLOCK, ... FUSED_MAX_THREADS
 // that keeps the most warps resident on an SM (common.cuh::pick_block).
 // The launch bounds hold a thread to
-// 65536 / (FUSED_MAX_THREADS * FUSED_MIN_BLOCKS) = 64 registers. PERF.md
-// records the layouts compared before these were kept.
+// 65536 / (FUSED_MAX_THREADS * FUSED_MIN_BLOCKS) = 32 registers, so that
+// an SM holds its full 64 warps: the tree walk waits on a dependent load a
+// step, and more warps in flight hide it better than registers spare the
+// spills (64, 40 and 32 registers compared in PERF.md).
 constexpr int FUSED_BLOCK = 128;
 constexpr int FUSED_MAX_THREADS = 512;
-constexpr int FUSED_MIN_BLOCKS = 2;
+constexpr int FUSED_MIN_BLOCKS = 4;
 
 // Bytes of the staged boxes of K subclusters: 8 float4 each, then the
 // visit order, padded to whole float4s.
@@ -506,26 +648,22 @@ __device__ __forceinline__ float* stage_boxes(const MeshGeom& g,
   }
 }
 
-// Dynamic shared memory of a block, in this order: with SMEM_BOXES the
-// quarter boxes gathered into the frame's visit order and the order
-// itself (staged_box_bytes); the sample sums (common.cuh::SampleSums);
-// with smem_lights the camera and the lights. ROUNDS = false is the
-// one-round launch (S == n_samples), without a register spill.
-template <bool SMEM_BOXES, bool ROUNDS>
+// Dynamic shared memory of a block, in this order: the sample sums
+// (common.cuh::SampleSums); with smem_lights the camera and the lights.
+// ROUNDS = false is the one-round launch (S == n_samples).
+template <bool ROUNDS>
 __global__ void __launch_bounds__(FUSED_MAX_THREADS, FUSED_MIN_BLOCKS)
 mesh_fused_kernel(const float* __restrict__ cam_in,
                   const float* __restrict__ dl_in, int n_dl,
                   const float* __restrict__ pl_in, int n_pl, MeshGeom g,
-                  int W, int H, int N, int n_rows, int n_samples, int S,
-                  int bounce_limit, int specular, int subtract, Sky sky,
-                  float scale, int smem_lights,
-                  float* __restrict__ out_rgb,
+                  const float4* __restrict__ nodes, int leaves, int W, int H,
+                  int N, int n_rows, int n_samples, int S, int bounce_limit,
+                  int specular, int subtract, Sky sky, float scale,
+                  int smem_lights, float* __restrict__ out_rgb,
                   int* __restrict__ out_count) {
   extern __shared__ float4 smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  Boxes<SMEM_BOXES> bx{g.qbox, g.order};
-  float* tail = stage_boxes<SMEM_BOXES>(g, smem, bx);
-  const SampleSums sm = sample_sums<1>(tail, S);
+  const SampleSums sm = sample_sums<1>(reinterpret_cast<float*>(smem), S);
   const float* cam = cam_in;
   Lights L;
   L.dl = dl_in;
@@ -544,10 +682,9 @@ mesh_fused_kernel(const float* __restrict__ cam_in,
     L.dl = sl + CAM_FLOATS;
     L.pl = L.dl + n_dlf;
   }
-  if (SMEM_BOXES) cp_async_wait_all();
   __syncthreads();
 
-  const MeshTracer<Boxes<SMEM_BOXES>> tr{g, bx};
+  const BvhTracer tr{g, nodes, leaves};
   const int n_lights = n_dl + n_pl;
   sample_threads<ROUNDS, 1>(
       sm, S, W, n_rows, n_samples,
@@ -588,48 +725,47 @@ MeshGeom make_geom(const float* sph, const float* sph_mat,
 
 // The launch shape of one band (see FUSED_BLOCK above).
 struct FusedShape : SampleShape {
-  bool smem_boxes, smem_lights;
+  bool smem_lights;
 };
 
-using FusedKernel = decltype(&mesh_fused_kernel<true, true>);
+using FusedKernel = decltype(&mesh_fused_kernel<true>);
 
-FusedKernel fused_kernel(bool smem_boxes, bool rounds) {
-  return smem_boxes ? (rounds ? mesh_fused_kernel<true, true>
-                              : mesh_fused_kernel<true, false>)
-                    : (rounds ? mesh_fused_kernel<false, true>
-                              : mesh_fused_kernel<false, false>);
+FusedKernel fused_kernel(bool rounds) {
+  return rounds ? mesh_fused_kernel<true> : mesh_fused_kernel<false>;
 }
 
-// The boxes are staged when they fit in a block beside the rest of its
-// shared memory; else the kernel reads them in place (SMEM_BOXES = false).
-cudaError_t fused_shape(int K, int n_dl, int n_pl, int W, int n_rows,
-                        int n_samples, FusedShape& sh) {
+cudaError_t fused_shape(int n_dl, int n_pl, int W, int n_rows, int n_samples,
+                        FusedShape& sh) {
   sample_rounds(n_samples, sh);
   const size_t light_bytes =
       sizeof(float) * ((size_t)CAM_FLOATS + (size_t)DLIGHT_FLOATS * n_dl +
                        (size_t)PLIGHT_FLOATS * n_pl);
   sh.smem_lights = light_bytes <= SMEM_LIGHT_BYTES;
-  for (sh.smem_boxes = true;; sh.smem_boxes = false) {
-    const FusedKernel kernel = fused_kernel(sh.smem_boxes, sh.rounds);
-    int optin = 0;
-    cudaError_t err = allow_max_smem(kernel, optin);
-    if (err == cudaSuccess)
-      err = pick_block(kernel,
-                       (sh.smem_boxes ? staged_box_bytes(K) : 0) +
-                           (sh.smem_lights ? light_bytes : 0),
-                       1, optin, FUSED_BLOCK, FUSED_MAX_THREADS,
-                       (long long)W * n_rows, sh);
-    if (err != cudaSuccess) return err;
-    if (sh.resident > 0) return cudaSuccess;
-    if (!sh.smem_boxes) return cudaErrorInvalidConfiguration;
-  }
+  const FusedKernel kernel = fused_kernel(sh.rounds);
+  int optin = 0;
+  cudaError_t err = allow_max_smem(kernel, optin);
+  if (err == cudaSuccess)
+    err = pick_block(kernel, sh.smem_lights ? light_bytes : 0, 1, optin,
+                     FUSED_BLOCK, FUSED_MAX_THREADS, (long long)W * n_rows,
+                     sh);
+  if (err != cudaSuccess) return err;
+  return sh.resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// The tree's leaf count from its table's rows (2 * leaves, leaves a power
+// of two), or -1 when the table is not such a table or deeper than the
+// walk's stack.
+int bvh_leaves(int n_nodes) {
+  if (n_nodes < 2 || (n_nodes & (n_nodes - 1)) != 0) return -1;
+  const int leaves = n_nodes / 2;
+  return leaves <= (1 << BVH_STACK) ? leaves : -1;
 }
 
 // The launch shape of pathtrace_mesh_kernel: a pixel's samples on S <=
 // MAX_ROUND threads of one block; the block is the smallest of
 // PT_MESH_BLOCK, 2 * PT_MESH_BLOCK, ... PT_MESH_MAX_THREADS that keeps the
-// most warps resident on an SM (common.cuh::pick_block), with the fused
-// kernel's launch bounds (64 registers a thread).
+// most warps resident on an SM (common.cuh::pick_block), with launch
+// bounds of 64 registers a thread.
 constexpr int PT_MESH_BLOCK = 128;
 constexpr int PT_MESH_MAX_THREADS = 512;
 constexpr int PT_MESH_MIN_BLOCKS = 2;
@@ -762,71 +898,68 @@ extern "C" {
 // Render rows [cam[15], cam[15] + n_rows) and samples
 // [cam[16], cam[16] + n_samples) of a W x H x N frame on `stream`; writes
 // the (3, n_rows, W) sample sum times `scale` and the per-pixel trace
-// counts. `texels` is the image sky's (6, sky_dim, sky_dim) int32 table,
-// read only when sky_kind is SKY_IMAGE. Returns cudaGetLastError() (0 on
-// success). The float4 tables must be 16-byte aligned (fresh torch
-// allocations are).
+// counts. `nodes` is the kernel tables' node table of n_nodes rows of 8
+// floats (ttrt_torch/mesh/bvh.py). `texels` is the image sky's
+// (6, sky_dim, sky_dim) int32 table, read only when sky_kind is SKY_IMAGE.
+// Returns cudaGetLastError() (0 on success). The float4 tables must be
+// 16-byte aligned (fresh torch allocations are).
 int ttrt_mesh_fused(const float* cam, const float* dl, int n_dl,
                     const float* pl, int n_pl, const float* sph,
                     const float* sph_mat, const float* sph_spec,
                     const int* sph_id, const float* tri, const float* tri_nrm,
                     const float* tri_mat, const float* tri_spec,
-                    const int* tri_id, const float* qbox, const int* order,
+                    const int* tri_id, const float* nodes, int n_nodes,
                     int kb_sph, int kb_tri, int W, int H, int N, int n_rows,
                     int n_samples, int bounce_limit, int specular,
                     int subtract, int sky_kind, int sky_dim, int bilinear,
                     const int* texels, float scale, float* out_rgb,
                     int* out_count, void* stream) {
+  const int leaves = bvh_leaves(n_nodes);
   if (n_dl < 0 || n_pl < 0 ||
       W < 1 || H < 1 || N < 1 || n_rows < 1 || n_samples < 1 ||
       kb_sph < 0 || kb_tri < 0 || sky_dim < 1 || sky_kind < SKY_COLORS ||
       sky_kind > SKY_IMAGE || (sky_kind == SKY_IMAGE && texels == nullptr) ||
-      order == nullptr)
+      nodes == nullptr || leaves < 0)
     return (int)cudaErrorInvalidValue;
   const Sky sky{sky_kind, sky_dim, bilinear != 0, texels};
   const MeshGeom g =
       make_geom(sph, sph_mat, sph_spec, sph_id, tri, tri_nrm, tri_mat,
-                tri_spec, tri_id, qbox, order, kb_sph, kb_tri, true);
+                tri_spec, tri_id, nullptr, nullptr, kb_sph, kb_tri, true);
   FusedShape sh;
-  const cudaError_t err =
-      fused_shape(kb_sph + kb_tri, n_dl, n_pl, W, n_rows, n_samples, sh);
+  const cudaError_t err = fused_shape(n_dl, n_pl, W, n_rows, n_samples, sh);
   if (err != cudaSuccess) return (int)err;
-  const FusedKernel kernel = fused_kernel(sh.smem_boxes, sh.rounds);
-  kernel<<<sh.blocks, sh.threads, sh.smem, (cudaStream_t)stream>>>(
-      cam, dl, n_dl, pl, n_pl, g, W, H, N, n_rows, n_samples, sh.samples,
-      bounce_limit, specular, subtract, sky, scale, sh.smem_lights ? 1 : 0,
-      out_rgb, out_count);
+  fused_kernel(sh.rounds)<<<sh.blocks, sh.threads, sh.smem,
+                            (cudaStream_t)stream>>>(
+      cam, dl, n_dl, pl, n_pl, g, reinterpret_cast<const float4*>(nodes),
+      leaves, W, H, N, n_rows, n_samples, sh.samples, bounce_limit, specular,
+      subtract, sky, scale, sh.smem_lights ? 1 : 0, out_rgb, out_count);
   return (int)cudaGetLastError();
 }
 
 // The launch shape ttrt_mesh_fused takes for a band of these sizes, into
-// out[11]: sample threads of a pixel, pixels of a block, threads of a
-// block, blocks, dynamic shared bytes of a block, boxes staged (1) or read
-// in place (0), camera and lights staged (1 or 0), blocks an SM holds,
-// SMs, and the chosen instantiation's registers and local (spill) bytes
-// of a thread. Returns a CUDA error code (0 on success).
-int ttrt_mesh_fused_layout(int kb_sph, int kb_tri, int n_dl, int n_pl, int W,
-                           int n_rows, int n_samples, int* out) {
-  if (n_dl < 0 || n_pl < 0 || W < 1 || n_rows < 1 || n_samples < 1 ||
-      kb_sph < 0 || kb_tri < 0)
+// out[10]: sample threads of a pixel, pixels of a block, threads of a
+// block, blocks, dynamic shared bytes of a block, camera and lights
+// staged (1) or read in place (0), blocks an SM holds, SMs, and the
+// chosen instantiation's registers and local (stack and spill) bytes of a
+// thread. Returns a CUDA error code (0 on success).
+int ttrt_mesh_fused_layout(int n_dl, int n_pl, int W, int n_rows,
+                           int n_samples, int* out) {
+  if (n_dl < 0 || n_pl < 0 || W < 1 || n_rows < 1 || n_samples < 1)
     return (int)cudaErrorInvalidValue;
   FusedShape sh;
-  cudaError_t err =
-      fused_shape(kb_sph + kb_tri, n_dl, n_pl, W, n_rows, n_samples, sh);
+  cudaError_t err = fused_shape(n_dl, n_pl, W, n_rows, n_samples, sh);
   int dev = 0, sms = 0;
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr,
-                                fused_kernel(sh.smem_boxes, sh.rounds));
+    err = cudaFuncGetAttributes(&attr, fused_kernel(sh.rounds));
   if (err != cudaSuccess) return (int)err;
-  const int vals[11] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
-                        (int)sh.smem, sh.smem_boxes ? 1 : 0,
-                        sh.smem_lights ? 1 : 0, sh.resident, sms,
-                        attr.numRegs, (int)attr.localSizeBytes};
-  for (int i = 0; i < 11; ++i) out[i] = vals[i];
+  const int vals[10] = {sh.samples, sh.pixels, sh.threads, sh.blocks,
+                        (int)sh.smem, sh.smem_lights ? 1 : 0, sh.resident,
+                        sms, attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
   return 0;
 }
 

@@ -16,10 +16,11 @@ the shadows are the sqrt-free any-hit tests with the point-light cutoff
 (:743-768, :787); the hit fixups, the reflected ray and the shading are
 the demo kernel's (``kernels/render.py``), whose fused multiply-adds follow
 the JAX oracle's compiled loop. The plain version tests every object; the
-kernel culls with the quarter AABBs in a per-frame near-to-far order. Both
-keep the lowest object id on an exact float tie (the JAX kernel keeps the
-first-visited object, mesh_fused.py:96-107), so the culled kernel equals
-the exhaustive plain version whatever it visits first.
+kernel walks each ray down the pack's tree of 4-object leaves
+(``mesh/bvh.py``), near child first. Both keep the lowest object id on an
+exact float tie (the JAX kernel keeps the first-visited object,
+mesh_fused.py:96-107), so the culled kernel equals the exhaustive plain
+version whatever it visits first.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ def order_subclusters(pack, origin: torch.Tensor) -> torch.Tensor:
     """(K,) int32 visit order over all subclusters (spheres' 0..kb_sph-1,
     then the triangles'), near to far by the squared distance from
     ``origin`` to the AABB center; invalid subclusters last
-    (mesh_fused.py:96). The order only makes the best-t cull converge
-    fast: the output does not depend on it."""
+    (mesh_fused.py:96). The order only makes the best-t cull of the
+    path-tracing kernel's walk converge fast: the output does not depend
+    on it."""
     lo = torch.cat([pack.sph_lo, pack.tri_lo], dim=0)
     hi = torch.cat([pack.sph_hi, pack.tri_hi], dim=0)
     valid = torch.cat([pack.sph_valid, pack.tri_valid]) != 0
@@ -203,13 +205,11 @@ def render_band_mesh_fused_cuda(
     """Render a band with the CUDA kernel (csrc/mesh.cu,
     ``ttrt_mesh_fused``): one thread per (pixel, sample), a pixel's
     samples in one block and added there in sample order, the bounces as
-    a loop, the quarter boxes staged in shared memory in the frame's visit
-    order (read in place past what a block holds); writes the
-    (3, n_rows, W) sample average (or sum) and the per-pixel trace counts
-    (``fused_layout`` gives the launch shape). The wrapper computes the
-    per-frame visit order (an argsort over the K subclusters) and packs
-    the camera and lights. Raises on anything the kernel does not take,
-    CPU tensors included."""
+    a loop, each trace a walk of the pack's tree (the kernel tables'
+    ``nodes``); writes the (3, n_rows, W) sample average (or sum) and the
+    per-pixel trace counts (``fused_layout`` gives the launch shape). The
+    wrapper packs the camera and lights. Raises on anything the kernel
+    does not take, CPU tensors included."""
     from ttrt_torch.kernels import build
 
     check_supported(scene, cfg)
@@ -224,7 +224,6 @@ def render_band_mesh_fused_cuda(
     n_pl = scene.point_lights.count
     tab = pack.tables
     with span("pack"):
-        order = order_subclusters(pack, scene.camera.frame.origin)
         cam = pack_camera(scene.camera, torch.float32, row_offset,
                           sample_offset).contiguous()
         dl = pack_dlights(scene.directional_lights,
@@ -244,7 +243,7 @@ def render_band_mesh_fused_cuda(
             tab.sph_spec.data_ptr(), tab.sph_id.data_ptr(),
             tab.tri.data_ptr(), tab.tri_nrm.data_ptr(),
             tab.tri_mat.data_ptr(), tab.tri_spec.data_ptr(),
-            tab.tri_id.data_ptr(), tab.qbox.data_ptr(), order.data_ptr(),
+            tab.tri_id.data_ptr(), tab.nodes.data_ptr(), tab.nodes.shape[0],
             tab.kb_sph, tab.kb_tri, W, cfg.height, cfg.rays_per_pixel,
             n_rows, n_samples, cfg.bounce_limit, int(cfg.specular),
             int(cfg.energy_model == "subtract"), sky_kind(scene.skybox),
@@ -256,9 +255,8 @@ def render_band_mesh_fused_cuda(
 
 
 LAYOUT_KEYS = ("sample_threads", "pixels_per_block",
-               "threads_per_block", "blocks", "smem_bytes", "boxes_staged",
-               "lights_staged", "blocks_per_sm", "sms", "registers",
-               "local_bytes")
+               "threads_per_block", "blocks", "smem_bytes", "lights_staged",
+               "blocks_per_sm", "sms", "registers", "local_bytes")
 
 
 def fused_layout(scene, cfg: RenderConfig, n_rows: Optional[int] = None,
@@ -266,14 +264,14 @@ def fused_layout(scene, cfg: RenderConfig, n_rows: Optional[int] = None,
     """The launch shape ``render_band_mesh_fused_cuda`` takes for a band of
     ``scene`` (``ttrt_mesh_fused_layout``): the sample threads of a pixel,
     pixels, threads and dynamic shared bytes of a block, the blocks,
-    whether the boxes and the lights are staged in shared memory, the
+    whether the camera and the lights are staged in shared memory, the
     blocks an SM holds and the SMs (hence ``waves``), and the kernel's
-    registers and local (spill) bytes a thread. Needs a CUDA device."""
+    registers and local (walk stack and spill) bytes a thread. Needs a
+    CUDA device."""
     from ttrt_torch.kernels import build
 
-    tab = scene.clusters.tables
     return build.layout(
-        "ttrt_mesh_fused_layout", LAYOUT_KEYS, tab.kb_sph, tab.kb_tri,
+        "ttrt_mesh_fused_layout", LAYOUT_KEYS,
         scene.directional_lights.count, scene.point_lights.count, cfg.width,
         cfg.height if n_rows is None else n_rows,
         cfg.rays_per_pixel if n_samples is None else n_samples)

@@ -12,7 +12,8 @@ per pack (``kernel_tables``, the pack's ``tables``): one 16-byte record
 per sphere (cx cy cz ccr2) and three per triangle (v0 e1 e2) in Morton
 order, so a warp whose rays test the same object reads one broadcast
 address; materials, normals and ids beside them; and the quarter AABBs
-with their object counts.
+with their object counts, and the node table of the tree over the same
+objects that the fused kernel walks (``mesh.bvh``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ttrt_torch.mesh import bvh
 
 BLOCK = 128  # objects per cluster
 GROUPS = BLOCK // 8  # 8-object groups per cluster (the table's minor axis)
@@ -55,6 +58,9 @@ class KernelTables(NamedTuple):
     qbox: torch.Tensor  # (K*4, 8) lo xyz, hi xyz (widened), n_obj, 0
     kb_sph: int
     kb_tri: int
+    # (2P, 8) the tree's nodes (mesh.bvh): lo xyz, hi xyz (widened), n_obj,
+    # a leaf's first position; None on a shard of the tables
+    nodes: Optional[torch.Tensor] = None
 
 
 class ClusterPack(NamedTuple):
@@ -188,10 +194,12 @@ def pack_clusters(spheres, triangles) -> ClusterPack:
             _pad_cols(spec, 0.0),
         ]
         sph = _table(cols)
-        sph_box = _boxes(c - r[:, None], c + r[:, None], sph.shape[1])
+        sph_ext = (c - r[:, None], c + r[:, None])
+        sph_box = _boxes(*sph_ext, sph.shape[1])
     else:
         sph = np.zeros((10, 0, 8, GROUPS), f32)
-        sph_box = _boxes(np.zeros((0, 3), f32), np.zeros((0, 3), f32), 0)
+        sph_ext = (np.zeros((0, 3), f32), np.zeros((0, 3), f32))
+        sph_box = _boxes(*sph_ext, 0)
 
     if triangles is not None and triangles.count:
         vec = lambda v: np.stack([_host(a) for a in v], -1).astype(f32)  # noqa: E731
@@ -217,10 +225,12 @@ def pack_clusters(spheres, triangles) -> ClusterPack:
                 + [_pad_cols(trefl, 0.0), _pad_cols(tspec, 0.0)])
         tri = _table(cols)
         pts = np.stack([v0, v0 + e1, v0 + e2], axis=1)  # (m, 3 verts, 3)
+        tri_ext = (pts, pts)
         tri_box = _boxes(pts, pts, tri.shape[1])
     else:
         tri = np.zeros((18, 0, 8, GROUPS), f32)
-        tri_box = _boxes(np.zeros((0, 3), f32), np.zeros((0, 3), f32), 0)
+        tri_ext = (np.zeros((0, 3), f32), np.zeros((0, 3), f32))
+        tri_box = _boxes(*tri_ext, 0)
 
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     s_lo, s_hi, s_valid, s_lo_q, s_hi_q = sph_box
@@ -228,7 +238,8 @@ def pack_clusters(spheres, triangles) -> ClusterPack:
     pack = ClusterPack(t(sph), t(s_lo), t(s_hi), t(s_valid),
                        t(tri), t(t_lo), t(t_hi), t(t_valid),
                        t(s_lo_q), t(s_hi_q), t(t_lo_q), t(t_hi_q))
-    return pack._replace(tables=kernel_tables(pack))
+    leaves = (bvh.leaf_extremes(*sph_ext), bvh.leaf_extremes(*tri_ext))
+    return pack._replace(tables=kernel_tables(pack, leaves))
 
 
 def _morton_rows(table: torch.Tensor) -> torch.Tensor:
@@ -262,8 +273,10 @@ def quarter_boxes(pack: ClusterPack):
     return lo, hi
 
 
-def kernel_tables(pack: ClusterPack) -> KernelTables:
-    """The CUDA kernels' layout of ``pack``, built on the pack's device."""
+def kernel_tables(pack: ClusterPack, leaves) -> KernelTables:
+    """The CUDA kernels' layout of ``pack``, built on the pack's device;
+    ``leaves`` are ``bvh.leaf_extremes`` of its spheres and triangles in
+    Morton order, from the per-object extremes of its quarter boxes."""
     s = _morton_rows(pack.sph)
     t = _morton_rows(pack.tri)
     counts = [(rows[:, col] >= 0).reshape(-1, QUARTERS, QBLOCK).sum(-1)
@@ -288,4 +301,5 @@ def kernel_tables(pack: ClusterPack) -> KernelTables:
         tri_mat=t[:, 13:17].contiguous(), tri_spec=t[:, 17].contiguous(),
         tri_id=t[:, 9].to(torch.int32).contiguous(),
         qbox=qbox.contiguous(), kb_sph=pack.kb_sph, kb_tri=pack.kb_tri,
+        nodes=bvh.node_table(*leaves, pack.kb_sph, pad, lo.device),
     )

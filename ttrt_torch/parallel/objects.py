@@ -109,6 +109,8 @@ def pad_pack_subclusters(tables: KernelTables, n: int) -> KernelTables:
                        (kb_s + pad_s + kb_t) * QUARTERS, pad_t * QUARTERS,
                        0.0),
         kb_sph=kb_s + pad_s, kb_tri=kb_t + pad_t,
+        # the tree's leaves number the triangles from the unpadded kb_sph
+        nodes=None,
     )
 
 
